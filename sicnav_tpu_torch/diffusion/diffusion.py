@@ -1,0 +1,73 @@
+"""Diffusion core: variance schedule and the DDIM sampler (twin of
+``sicnav_tpu/diffusion/diffusion.py``).
+
+All samples x agents are denoised as one batch; the reverse loop over t is
+a host loop. The schedule is computed in float64 with numpy and stored as
+float32, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+
+class VarianceSchedule(NamedTuple):
+    betas: torch.Tensor        # (T+1,) padded with beta_0 = 0
+    alphas: torch.Tensor
+    alpha_bars: torch.Tensor
+    sigmas_flex: torch.Tensor
+    sigmas_inflex: torch.Tensor
+    num_steps: int
+
+
+def make_schedule(num_steps: int = 100, device=None) -> VarianceSchedule:
+    """The reference's linear schedule (beta from 1e-4 to 5e-2) on
+    ``device``; the cosine schedule is not ported yet."""
+    betas = np.concatenate([[0.0], np.linspace(1e-4, 5e-2, num_steps)])
+    alphas = 1.0 - betas
+    alpha_bars = np.exp(np.cumsum(np.log(alphas)))
+    sigmas_flex = np.sqrt(betas)
+    sigmas_inflex = np.zeros_like(betas)
+    sigmas_inflex[1:] = np.sqrt(
+        (1 - alpha_bars[:-1]) / (1 - alpha_bars[1:]) * betas[1:])
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    return VarianceSchedule(f32(betas), f32(alphas), f32(alpha_bars),
+                            f32(sigmas_flex), f32(sigmas_inflex), num_steps)
+
+
+def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
+           context, horizon: int, point_dim: int = 2, stride: int = 2,
+           generator=None, x_T=None):
+    """Reverse diffusion with DDIM (the reference's default sampler; DDPM
+    is not ported yet): all samples x agents in one batch.
+
+    net_apply(x_t (bs, horizon, point_dim), beta (bs,), ctx (bs, F)) ->
+    eps_hat, with bs = n_samples * B and ``ctx`` the context tiled sample
+    major. ``x_T`` (bs, horizon, point_dim) replaces the drawn start noise
+    (tests inject the reference's); otherwise it is drawn with
+    ``generator``. Returns (n_samples, B, horizon, point_dim).
+    """
+    B = context.shape[0]
+    bs = n_samples * B
+    ctx = context.repeat(n_samples, 1)
+    if x_T is None:
+        x_T = torch.randn((bs, horizon, point_dim), generator=generator,
+                          device=context.device)
+    x_t = x_T.to(context.dtype)
+
+    # per-step coefficients, elementwise as the reference computes them
+    sqrt_ab = torch.sqrt(sched.alpha_bars)
+    sqrt_1mab = torch.sqrt(1 - sched.alpha_bars)
+    for t in range(sched.num_steps, 0, -stride):
+        t_next = max(t - stride, 0)
+        beta = sched.betas[t].expand(bs)
+        e_theta = net_apply(x_t, beta, ctx)
+        x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
+        x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
+    return x_t.reshape(n_samples, B, horizon, point_dim)
