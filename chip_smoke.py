@@ -6,13 +6,16 @@
 Phases, in order; each prints one line with its own seconds:
 
 1. device   the card's name, the device count and its power limit.
-2. build    nvcc builds the hand-written kernels (csrc/*.cu) into one library.
+2. build    nvcc builds the hand-written kernels (csrc/*.cu) into one library;
+            ptxas's registers for each kernel, and no kernel may spill.
 3. kernels  every kernel against its plain PyTorch version on the same
-            inputs, at the test shapes and the main path's shapes, with the
-            tolerance stated, on inputs where every term of the kernel's sum
-            carries weight; the device time of one call (CUDA events, median
-            of 100), and the median time of a synchronized call on the
-            host's clock (the host overhead a caller pays).
+            inputs, at the test shapes, a ragged shape and the main path's
+            shapes, with the tolerance stated, on inputs where every term of
+            the kernel's sum carries weight, and at the main path's shape
+            far from the origin, as the path's own inputs lie, against the
+            plain version in float64; the device time of one call (CUDA
+            events, median of 100), and the median time of a synchronized
+            call on the host's clock (the host overhead a caller pays).
 4. slice    the main path: one 60-step hallway-bottleneck episode (host
             case 0, shipped env defaults) through rollout_episode_stateful.
             Every step pushes the human positions into the forecaster, serves
@@ -37,6 +40,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -50,8 +54,10 @@ sys.path.insert(0, ROOT)
 SEED = 0
 KDE_TOL = 2e-4          # rtol = atol, the kernel's tolerance against its plain version
 KDE_SHAPES = [(1, 7, 2), (3, 20, 24), (5, 33, 12)]      # tests/test_kde_pallas.py
+RAGGED_KDE_SHAPE = (2, 100, 3)  # S > 64 and not a multiple of 32, D odd
 MAIN_KDE_SHAPE = (8, 48, 16)    # joint ranking: G = horizon, D = 2 * max_humans
 IMID_KDE_SHAPE = (64, 48, 2)    # iMID ranking: G = 8 * max_humans
+FAR_KDE_R2 = 1.2e9              # |y|^2 of the main path's whitened samples
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -93,8 +99,8 @@ def events_ms(fn, n=100, chunk=10, warmup=20):
     the card caught up with the host behind a sleep of 300 ms, as if the
     host blocks once too many launches are pending. While a chunk is queued,
     torch's sync check is set to raise, so a call that waits for the card
-    names itself; a sleep that still ends first is retried once, longer,
-    then raises."""
+    names itself; a sleep that still ends first is retried twice, each time
+    four times longer, then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -105,7 +111,7 @@ def events_ms(fn, n=100, chunk=10, warmup=20):
     torch.cuda.synchronize()
     times = []
     while len(times) < n:
-        for margin in (3, 12):
+        for margin in (3, 12, 48):
             starts = [torch.cuda.Event(enable_timing=True) for _ in range(chunk)]
             ends = [torch.cuda.Event(enable_timing=True) for _ in range(chunk)]
             slept = torch.cuda.Event()
@@ -127,21 +133,29 @@ def events_ms(fn, n=100, chunk=10, warmup=20):
                 break
         else:
             raise RuntimeError(f"events_ms: the card caught up with the host "
-                               f"twice (queuing {chunk} calls took "
+                               f"three times (queuing {chunk} calls took "
                                f"{queue_ms:.2f} ms unsynced)")
     return statistics.median(times)
 
 
 @functools.cache
 def sleep_cycles_per_ms():
-    """Clock cycles per millisecond of ``torch.cuda._sleep``, measured once."""
+    """Clock cycles per millisecond of ``torch.cuda._sleep``, measured once:
+    the most of three measurements, after a sleep that wakes the card. A
+    card that starts at a low clock reads few cycles per ms, and every later
+    sleep, at the full clock, then ends several times sooner than asked
+    (so the card caught up with the host on a fresh card's first shape)."""
     cycles = 10 ** 7
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    torch.cuda._sleep(cycles)
-    b.record()
-    torch.cuda.synchronize()
-    return cycles / a.elapsed_time(b)
+    torch.cuda._sleep(5 * cycles)
+    rates = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        torch.cuda.synchronize()
+        rates.append(cycles / a.elapsed_time(b))
+    return max(rates)
 
 
 def call_ms(fn, n=200, warmup=20):
@@ -201,12 +215,70 @@ def check_kde(K, y, z):
     return (got - want).abs().max().item(), pair_share(z, want)
 
 
+def check_ptxas(text):
+    """Print the registers of each kernel in nvcc's ``-Xptxas -v`` report;
+    raise if one spills or keeps a stack frame (an array such as y_i that
+    left the registers). A library built by an earlier run of the same
+    sources leaves no report."""
+    if not text:
+        log("  ptxas: library built by an earlier run; no report")
+        return
+    rows, name, local = [], "", (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            local = (int(m.group(1)), int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.append((name, int(m.group(1)), *local))
+            local = (0, 0)
+    assert rows, "no ptxas report in the build log"
+    for name, regs, stack, spill in rows:
+        m = re.search(r"kde_loglik_kernelILi(\d+)ELb([01])E", name)
+        label = (f"kde_loglik_kernel D {'=' if m.group(2) == '1' else '<='} "
+                 f"{m.group(1)}" if m else name)
+        log(f"  ptxas: {label}: {regs} registers, {stack} bytes stack "
+            f"frame, {spill} bytes spilled")
+    local = [r for r in rows if r[2] or r[3]]
+    assert not local, f"kernels use local memory: {local}"
+
+
+def check_far_kde(K, gen):
+    """The kernel at the main path's shape with |y|^2 near FAR_KDE_R2, as
+    the path's uncentred whitened samples lie, against the plain version in
+    float64 (the float32 plain version's Gram form loses hundreds in d2
+    there; its error is printed); max abs error."""
+    G, S, D = MAIN_KDE_SHAPE
+    y, z = kde_inputs(G, S, D, gen)
+    y = y + math.sqrt(FAR_KDE_R2 / D)
+    exact = K.kde_loglik_plain(y.double(), z.double())
+    got = K.kde_loglik(y, z).double()
+    torch.testing.assert_close(got, exact, rtol=KDE_TOL, atol=KDE_TOL)
+    share = pair_share(z.double(), exact)
+    weighted = (share > 0.1).double().mean().item()
+    assert weighted >= 0.75, weighted
+    err = (got - exact).abs().max().item()
+    plain_err = (K.kde_loglik_plain(y, z).double() - exact).abs().max().item()
+    log(f"  kde_loglik G={G} S={S} D={D}, |y|^2 up to "
+        f"{(y * y).sum(-1).max().item():.3e}: max_abs_err {err:.3e} against "
+        f"the float64 plain version (bound rtol=atol={KDE_TOL}); the float32 "
+        f"plain version's {plain_err:.3e}; pair share median "
+        f"{share.median().item():.3f}, {100 * weighted:.0f} % of rows over "
+        f"0.1")
+    return err
+
+
 def phase_kernels(K):
     """KDE kernel vs plain version; returns its JSON entry (launches later)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = 0.0
     timings = {}
-    for G, S, D in KDE_SHAPES + [MAIN_KDE_SHAPE, IMID_KDE_SHAPE]:
+    for G, S, D in KDE_SHAPES + [RAGGED_KDE_SHAPE, MAIN_KDE_SHAPE,
+                                 IMID_KDE_SHAPE]:
         y, z = kde_inputs(G, S, D, gen)
         err, share = check_kde(K, y, z)
         # the check must see the pair terms: most rows get >10 % from them
@@ -226,6 +298,7 @@ def phase_kernels(K):
             f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
             f"{bound * 1e3:.4f} us; per call with host: kernel "
             f"{call * 1e3:.2f} us, plain {plain_call * 1e3:.2f} us")
+    max_err = max(max_err, check_far_kde(K, gen))
     ms, plain_ms = timings[MAIN_KDE_SHAPE]
     bound, bound_by = kde_bound_ms(*MAIN_KDE_SHAPE)
     return {"name": "kde_loglik", "route": "cuda",
@@ -493,6 +566,7 @@ def main():
         log(f"  {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
         for line in build.build_log.strip().splitlines():
             log(f"  nvcc: {line}")
+        check_ptxas(build.build_log)
     with Phase("kernels"):
         entry = phase_kernels(K)
     with Phase("slice"):

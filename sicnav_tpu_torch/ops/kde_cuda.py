@@ -22,14 +22,18 @@ import torch
 
 from sicnav_tpu_torch.ops import build
 
-# the kernel stages (S*D + S) floats per group in default shared memory
-_SMEM_LIMIT = 48 * 1024
+# the widest D the kernel takes (csrc/kde.cu instantiates it for D <= 64)
+KDE_MAX_D = 64
+# the most shared memory a block can have on Hopper (227 KB); the kernel
+# opts in above the default 48 KB
+_SMEM_LIMIT = 232448
 
 
 def kde_loglik_plain(y_white, log_Z):
     """Plain PyTorch version: out[g, i] = logsumexp_j(-0.5 *
     max(|y_i|^2 + |y_j|^2 - 2 y_i.y_j, 0) - log_Z[g]). (G, S, D), (G,) ->
-    (G, S)."""
+    (G, S). It takes the distance in the reference's Gram form; the kernel
+    takes it as sum_d (y_i[d] - y_j[d])^2, the same function."""
     sq = (y_white * y_white).sum(dim=-1)
     gram = torch.einsum("gsd,gtd->gst", y_white, y_white)
     d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * gram
@@ -60,10 +64,7 @@ def kde_loglik(y_white, log_Z):
                          f"{tuple(log_Z.shape)}")
     if not (y_white.is_contiguous() and log_Z.is_contiguous()):
         raise ValueError("kde_loglik: the kernel takes contiguous tensors")
-    if S * (D + 1) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"kde_loglik: S={S}, D={D} needs {S * (D + 1) * 4} "
-                         f"bytes of shared memory; the kernel takes at most "
-                         f"{_SMEM_LIMIT}")
+    check_kernel_shape(S, D)
     out = torch.empty((G, S), dtype=torch.float32, device=y_white.device)
     lib = build.load_library()
     with torch.cuda.device(y_white.device):
@@ -77,6 +78,20 @@ def kde_loglik(y_white, log_Z):
 
 
 kde_loglik.launches = 0
+
+
+def check_kernel_shape(S, D):
+    """Raise unless the kernel takes groups of S samples of width D: D up
+    to KDE_MAX_D, and a block's shared memory, the group's samples
+    transposed to [D][S | 1] floats, within _SMEM_LIMIT."""
+    if D > KDE_MAX_D:
+        raise ValueError(f"kde_loglik: the kernel takes D <= {KDE_MAX_D}, "
+                         f"got D={D}")
+    smem = 4 * D * (S | 1)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"kde_loglik: S={S}, D={D} needs {smem} bytes of "
+                         f"shared memory; the kernel takes at most "
+                         f"{_SMEM_LIMIT}")
 
 
 def kde_loglik_fused(preds, bandwidth):

@@ -1,7 +1,9 @@
 """Ground rules of the PyTorch port, checked on its source.
 
-- No file of ``sicnav_tpu_torch/`` and not ``chip_smoke.py`` imports JAX,
-  Flax, Optax, Orbax or the JAX package: the card's machine has none of them.
+- No file of ``sicnav_tpu_torch/``, not ``chip_smoke.py`` and not the
+  kernel tests (``tests/test_torch_kde_kernel.py``, run on the card) import
+  JAX, Flax, Optax, Orbax or the JAX package: the card's machine has none
+  of them.
 - Kernels build with plain nvcc and bind with ctypes: no source includes
   PyTorch's extension header or uses ``torch.utils.cpp_extension``.
 - The package carries source only: no file over 200 KB, no built library.
@@ -25,7 +27,8 @@ from sicnav_tpu_torch.env import types as T
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sicnav_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
-PY_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PY_FILES = sorted(PKG.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kde_kernel.py"]
 
 
 def _imported_roots(path):

@@ -13,8 +13,9 @@ test asserts it. Samples inside the top k may be near-equal, so selections
 are compared sample by sample, and each selected sample's log-weight is
 held to 2e-4.
 
-The CUDA kernel itself runs only on a card: the tests marked ``gpu`` hold it
-against the plain version there and skip elsewhere.
+The CUDA kernel itself runs only on a card: its tests, marked ``gpu``, are
+in ``tests/test_torch_kde_kernel.py``, which imports no JAX so that it runs
+on the card's machine.
 """
 
 import os
@@ -29,29 +30,10 @@ from sicnav_tpu.diffusion import kde as KDE_ref
 from sicnav_tpu.ops import kde_pallas as K_ref
 from sicnav_tpu_torch.diffusion import kde as KDE
 from sicnav_tpu_torch.ops import kde_cuda as K
+from tests.test_torch_kde_kernel import (SHAPES, TOL, _assert_pairs_weigh,
+                                         _forecasts, _inputs)
 
 torch.set_num_threads(2)
-TOL = 2e-4
-SHAPES = [(1, 7, 2), (3, 20, 24), (5, 33, 12), (8, 48, 16)]
-MAIN_PATH_SHAPES = [(8, 48, 16), (64, 48, 2)]
-
-
-def _inputs(G, S, D):
-    """Samples at a spread of 2/sqrt(D) per coordinate, so pair distances
-    are of order 1 at every D and the terms j != i carry weight in every
-    row's sum (at a spread of order 1 and D = 16 they would all be below
-    1e-22, and a kernel that dropped them would still agree)."""
-    rng = np.random.default_rng(G * 100 + S)
-    y = (rng.normal(size=(G, S, D)) * 2 / np.sqrt(D)).astype(np.float32)
-    z = rng.uniform(1, 5, (G,)).astype(np.float32)
-    return y, z
-
-
-def _assert_pairs_weigh(z, out):
-    """Most rows get more than 10 % of their sum from the pairs j != i (the
-    self term is exp(-log_Z), so the pairs' share is 1 - exp(-log_Z - out))."""
-    share = 1 - np.exp(-np.asarray(z)[:, None] - np.asarray(out))
-    assert (share > 0.1).mean() >= 0.75, share
 
 
 @pytest.mark.parametrize("G,S,D", SHAPES)
@@ -94,36 +76,6 @@ def test_kde_loglik_fused(G, S, D, per_group):
                              torch.as_tensor(bw) if per_group else bw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
-
-
-def _forecasts(seed, joint, S=48, H=4, T=8, sizes=(6, 4, 3, 2, 2), n_out=10,
-               R=10.0):
-    """Forecasts whose ranking the data decide, not rounding.
-
-    The reference whitens without centring and takes distances in Gram form,
-    so its rounding grows with |y|^2, and where samples lie far apart in
-    whitened units every likelihood is the self term and they tie. Here ten
-    far samples (at +-R) set the covariance, which keeps the others' whitened
-    coordinates small; their rows only shift all likelihoods of a group
-    alike, which the top-k weights cancel. The other samples sit in tight
-    clusters of the given sizes, laid out in the whitened unit of each
-    step's bandwidth (bw^2 / sigma), so a sample's likelihood is set by its
-    cluster's size and the top 10 (clusters of 6 and 4) stand apart from
-    the 11th."""
-    rng = np.random.default_rng(seed)
-    cloud = S - n_out
-    sigma = R * np.sqrt(n_out / (S - 1))
-    bw = (np.exp(np.linspace(np.log(0.01), np.log(0.1), T)) if joint
-          else np.full(T, 0.05))
-    unit = (bw ** 2 / sigma)[None, None, :, None]
-    n_centres = cloud - sum(sizes) + len(sizes)
-    centres = rng.normal(0.0, 1.5, (n_centres, H, T, 2)) * unit
-    label = np.concatenate([np.full(n, i) for i, n in enumerate(sizes)] +
-                           [np.arange(len(sizes), n_centres)])
-    x = centres[rng.permutation(label)] + \
-        rng.normal(0.0, 0.2, (cloud, H, T, 2)) * unit
-    far = R * rng.choice([-1.0, 1.0], (n_out, H, T, 2))
-    return np.concatenate([x, far])[rng.permutation(S)].astype(np.float32)
 
 
 def _ref_lik(fc, joint):
@@ -182,33 +134,3 @@ def test_find_nvcc_names_the_paths_it_tried(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found") as err:
         build.find_nvcc()
     assert str(tmp_path / "bin" / "nvcc") in str(err.value)
-
-
-def _cuda_or_skip():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs these on the card")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("G,S,D", SHAPES + MAIN_PATH_SHAPES[1:])
-def test_cuda_kernel_matches_plain(G, S, D):
-    _cuda_or_skip()
-    y, z = _inputs(G, S, D)
-    y, z = torch.as_tensor(y).cuda(), torch.as_tensor(z).cuda()
-    before = K.kde_loglik.launches
-    got = K.kde_loglik(y, z)
-    torch.cuda.synchronize()
-    assert K.kde_loglik.launches == before + 1
-    want = K.kde_loglik_plain(y, z)
-    _assert_pairs_weigh(z.cpu(), want.cpu())
-    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
-
-
-@pytest.mark.gpu
-def test_cuda_most_likely_samples_matches_cpu():
-    _cuda_or_skip()
-    fc = torch.as_tensor(_forecasts(0, True))
-    top_cpu, lw_cpu = KDE.most_likely_samples(fc, 10)
-    top, lw = KDE.most_likely_samples(fc.cuda(), 10)
-    torch.testing.assert_close(top.cpu(), top_cpu, rtol=0, atol=0)
-    torch.testing.assert_close(lw.cpu(), lw_cpu, rtol=TOL, atol=TOL)
