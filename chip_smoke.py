@@ -16,19 +16,38 @@ Phases, in order; each prints one line with its own seconds:
             plain version in float64; the device time of one call (CUDA
             events, median of 100), and the median time of a synchronized
             call on the host's clock (the host overhead a caller pays).
-4. slice    the main path: one 60-step hallway-bottleneck episode (host
-            case 0, shipped env defaults) through rollout_episode_stateful.
-            Every step pushes the human positions into the forecaster, serves
-            a JMID forecast at the shipped hallway predictor's width (weights
-            drawn from a seed; 48 samples, DDIM stride 2, KDE top 10), then
-            DWA acts. Every forecast is checked; every kernel must have been
-            launched on this path (launch counts are reset just before it),
-            and is held again against its plain version on each input the
-            path handed it.
-5. cross    one forecast's samples and one env step on the card against the
-            same on the CPU, with the same weights and noise.
-6. profile  torch.profiler over three more control steps: the device's busy
-            share and the kernels that take the most device time.
+4. slice    the first slice's path: one 60-step hallway-bottleneck episode
+            (host case 0, shipped env defaults: 3 humans in 8 slots) through
+            rollout_episode_stateful. Every step pushes the human positions
+            into the forecaster, serves a JMID forecast at the shipped
+            hallway predictor's width (weights drawn from a seed; 48
+            samples, DDIM stride 2, KDE top 10), then DWA acts. Every
+            forecast is checked; the kernel must have been launched on this
+            path (launch counts are reset just before it), and is held again
+            against its plain version on each input the path handed it.
+5. mpc      the main path: the SICNav-Diffusion closed loop at the
+            definitive protocol (hallway bottleneck, 3 ORCA-plus humans in 3
+            slots starting at once, 30 s; the trained jmid_hallway weights
+            from weights/jmid_hallway.npz; the bilevel MPC with the RA-L
+            capsule robot, acados slacks, close-to-preds, door-yield, wall
+            margin 0.10, IPMSettings(n_iter=30)), through
+            sicnav_diffusion.make_policy and rollout_episode_stateful, for
+            MPC_STEPS of the episode's 122 (the robot reached its goal at
+            step 18 on the card; more steps would only rerun the MPC on the
+            frozen state, at 6-11 s a step). Every action, IPMInfo and
+            forecast is checked; the kernel must have been launched once
+            per step and is held against its plain version on each input;
+            it prints the env / forecast / MPC ms per step (median, p90)
+            and the share of solves the cascade accepted.
+6. cross    one forecast's samples and one env step on the card against the
+            same on the CPU, with the same weights and noise; MPC control
+            step CROSS_STEP on both, on the same state, carry and served
+            forecasts: one IPM iteration within CROSS_ITER_TOL; the whole
+            step in float64, its action within CROSS_ACTION_TOL; the
+            float32 step's action within CROSS_ACTION_F32_TOL.
+7. profile  torch.profiler over three DWA-loop steps and over one MPC
+            control step: the device's busy share, the launches per control
+            step and the kernels that take the most device time.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -36,6 +55,7 @@ check raises, so the script exits non-zero and prints no result; without a
 CUDA device it exits 1 at once.
 """
 
+import dataclasses
 import functools
 import json
 import math
@@ -55,8 +75,25 @@ SEED = 0
 KDE_TOL = 2e-4          # rtol = atol, the kernel's tolerance against its plain version
 KDE_SHAPES = [(1, 7, 2), (3, 20, 24), (5, 33, 12)]      # tests/test_kde_pallas.py
 RAGGED_KDE_SHAPE = (2, 100, 3)  # S > 64 and not a multiple of 32, D odd
-MAIN_KDE_SHAPE = (8, 48, 16)    # joint ranking: G = horizon, D = 2 * max_humans
+MAIN_KDE_SHAPE = (8, 48, 16)    # DWA slice's joint ranking: G = horizon, D = 2 * 8 slots
 IMID_KDE_SHAPE = (64, 48, 2)    # iMID ranking: G = 8 * max_humans
+PROTOCOL_KDE_SHAPE = (8, 48, 6)  # the protocol's joint ranking: 3 humans
+PROTOCOL_IMID_SHAPE = (24, 48, 2)  # the protocol's iMID ranking
+WEIGHTS = os.path.join(ROOT, "weights", "jmid_hallway.npz")
+MPC_STEPS = 20          # control steps of the mpc phase (case 0 ends at step 18)
+MPC_IPM_ITERS = 30      # the protocol's IPMSettings(n_iter=30)
+CROSS_ITER_TOL = 1e-4   # one IPM iteration, card vs CPU, relative to max |z|
+CROSS_STEP = 2          # the control step cross-checked: the robot turning
+# The control step's action (v, r), card vs CPU. Thirty iterations of a
+# nonconvex IPM that end unconverged carry float32 rounding, 1e-6 after one
+# iteration, into the action: r moved by 1.2e-2 between 4 and 1 CPU
+# threads at CROSS_STEP, and by 7.0e-3 between the card and the CPU. In
+# float64 the same step moved by 1.6e-10 between thread counts, so the
+# float64 step holds the card to the CPU's control step; r forced to 0
+# would miss it by |r|, 2.3e-2 there. The float32 bound is a sanity bound
+# above float32's reach (scripts/mpc_rounding_torch.py; PERF.md section 6).
+CROSS_ACTION_TOL = 1e-6
+CROSS_ACTION_F32_TOL = 2e-2
 FAR_KDE_R2 = 1.2e9              # |y|^2 of the main path's whitened samples
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
@@ -278,7 +315,8 @@ def phase_kernels(K):
     max_err = 0.0
     timings = {}
     for G, S, D in KDE_SHAPES + [RAGGED_KDE_SHAPE, MAIN_KDE_SHAPE,
-                                 IMID_KDE_SHAPE]:
+                                 IMID_KDE_SHAPE, PROTOCOL_KDE_SHAPE,
+                                 PROTOCOL_IMID_SHAPE]:
         y, z = kde_inputs(G, S, D, gen)
         err, share = check_kde(K, y, z)
         # the check must see the pair terms: most rows get >10 % from them
@@ -299,8 +337,9 @@ def phase_kernels(K):
             f"{bound * 1e3:.4f} us; per call with host: kernel "
             f"{call * 1e3:.2f} us, plain {plain_call * 1e3:.2f} us")
     max_err = max(max_err, check_far_kde(K, gen))
-    ms, plain_ms = timings[MAIN_KDE_SHAPE]
-    bound, bound_by = kde_bound_ms(*MAIN_KDE_SHAPE)
+    # the main path is now the protocol's MPC loop: its ranking's shape
+    ms, plain_ms = timings[PROTOCOL_KDE_SHAPE]
+    bound, bound_by = kde_bound_ms(*PROTOCOL_KDE_SHAPE)
     return {"name": "kde_loglik", "route": "cuda",
             "source": "sicnav_tpu_torch/csrc/kde.cu",
             "replaces": "sicnav_tpu/ops/kde_pallas.py:33",
@@ -311,10 +350,11 @@ def phase_kernels(K):
 
 def check_live_kde(K, ranked):
     """The kernel on every input the main path handed it, against the plain
-    version in float64. On these inputs the float32 plain version is no
-    reference: the reference's uncentred whitening puts |y|^2 near 1e9,
-    where the Gram form's rounding (up to a few hundred in d2) can swallow
-    the self term, d_ii = 0, that sets each row. Its error is printed."""
+    version in float64. The reference's uncentred whitening puts |y|^2 near
+    1e9 there, where a float32 Gram-form distance (the reference's) would
+    miss the self term d_ii = 0 by hundreds; the plain version takes the
+    distance in difference form, as the kernel does, and its float32 error
+    is printed beside the kernel's."""
     err = plain_err = 0.0
     shares = []
     for preds, bw in ranked:
@@ -545,6 +585,285 @@ def phase_profile(model, steps=3):
             f"{e.self_device_time_total / e.count:.2f} us each on the device")
 
 
+def protocol_env():
+    """The definitive protocol's environment: hallway bottleneck, 3 ORCA-plus
+    humans in 3 slots that start at once, 30 s, unicycle robot."""
+    from sicnav_tpu_torch.env.types import EnvConfig
+    return EnvConfig(scenario="hallway_bottleneck", human_policy="orca_plus",
+                     human_num=3, max_humans=3, starts_moving=0,
+                     time_limit=30, robot_kinematics="unicycle")
+
+
+def trained_model(device):
+    """The trained hallway JMID predictor at its shipped widths, from the
+    converted weights in the checkout (scripts/convert_jmid_torch.py)."""
+    from sicnav_tpu_torch.convert import load_jmid_npz
+    from sicnav_tpu_torch.diffusion.mid import JMIDModel
+    from sicnav_tpu_torch.diffusion.models import ModelConfig
+    model = JMIDModel(ModelConfig(context_dim=128, tf_layer=2), device=device)
+    model.load_state_dict(load_jmid_npz(WEIGHTS))
+    return model
+
+
+def _wrap(module, name, wrapper):
+    """Replace module.name by wrapper(original); returns the restorer."""
+    orig = getattr(module, name)
+    setattr(module, name, wrapper(orig))
+    return lambda: setattr(module, name, orig)
+
+
+def phase_mpc(K, device="cuda", max_steps=None):
+    """The main path: the SICNav-Diffusion closed loop at the definitive
+    protocol, through sicnav_diffusion.make_policy and
+    rollout_episode_stateful, with the trained weights. ``device`` and
+    ``max_steps`` exist for tests/test_torch_slice.py's CPU rehearsal.
+    Returns (ocp, model, settings, (k, state, carry, served forecasts) of
+    step k = CROSS_STEP or the last, launches)."""
+    from sicnav_tpu_torch.diffusion import forecaster as FC
+    from sicnav_tpu_torch.diffusion import kde as KDE
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.env.rollout import rollout_episode_stateful
+    from sicnav_tpu_torch.mpc import ipm
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+
+    cfg = protocol_env()
+    fcfg = FC.ForecasterConfig(num_samples=48, num_ret_samples=10, dt=cfg.dt)
+    settings = ipm.IPMSettings(n_iter=MPC_IPM_ITERS)
+    max_steps = MPC_STEPS if max_steps is None else max_steps
+    model = trained_model(device)
+    ocp, policy_fn = SD.make_policy(cfg, model, fcfg=fcfg, settings=settings,
+                                    device=device)
+    state = crowd_sim.reset_host(cfg, 0, device=device)
+    carry = SD.init_carry(ocp, cfg.max_humans, fcfg, seed=SEED)
+
+    times = {"env": [], "forecast": [], "mpc": []}
+    served, infos, ranked, accepted, actions = [], [], [], [], []
+    last, record = [None], []
+
+    def timed_forecast(orig):
+        def fn(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            _sync(device)
+            times["forecast"].append(time.perf_counter() - t0)
+            served.append(out)
+            return out
+        return fn
+
+    def kept_solve(orig):
+        def fn(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            infos.append(out[1])
+            return out
+        return fn
+
+    def kept_kde(orig):
+        def fn(preds, bandwidth):
+            ranked.append((preds, bandwidth))
+            return orig(preds, bandwidth)
+        return fn
+
+    def step_fn(state, carry):
+        _sync(device)
+        t0 = time.perf_counter()
+        if last[0] is not None:
+            times["env"].append(t0 - last[0])
+        n_fc = len(times["forecast"])
+        action, new_carry = policy_fn(state, carry)
+        _sync(device)
+        t1 = time.perf_counter()
+        assert len(times["forecast"]) == n_fc + 1
+        times["mpc"].append(t1 - t0 - times["forecast"][-1])
+        accepted.append(new_carry.mpc.prev_ok)
+        actions.append(action)
+        if len(actions) <= CROSS_STEP + 1:
+            record[:] = [len(actions) - 1, state, carry.mpc, served[-1]]
+        last[0] = t1
+        return action, new_carry
+
+    restore = [_wrap(FC, "predict_ret_best", timed_forecast),
+               _wrap(ipm, "solve", kept_solve),
+               _wrap(KDE, "kde_loglik_fused", kept_kde)]
+    K.kde_loglik.launches = 0
+    try:
+        t0 = time.perf_counter()
+        final, stats = rollout_episode_stateful(state, carry, step_fn, cfg,
+                                                max_steps)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        for r in restore:
+            r()
+    launches = K.kde_loglik.launches
+
+    assert len(served) == max_steps == len(infos) == len(actions)
+    for fc, lw in served:
+        check_forecast(fc, lw, cfg.max_humans, fcfg.num_ret_samples,
+                       fcfg.horizon)
+    for a in actions:
+        assert tuple(a.shape) == (2,) and bool(torch.isfinite(a).all()), a
+    for info in infos:
+        for name, x in info._asdict().items():
+            assert bool(torch.isfinite(x.float()).all()), (name, x)
+    if torch.device(device).type == "cuda":
+        assert launches == len(served), (launches, len(served))
+    assert bool(torch.isfinite(final.h_pos).all())
+    s = {k: (v.item() if v.dim() == 0 else v.tolist())
+         for k, v in stats._asdict().items()}
+    acc = torch.stack(accepted).float()
+    eq = torch.stack([i.eq_viol for i in infos])
+    log(f"  protocol episode (host case 0, {max_steps} of 122 steps, "
+        f"IPM {settings.n_iter} iterations, trained jmid_hallway): "
+        f"success={s['success']} collision_steps={s['collision_steps']} "
+        f"wall_collision_steps={s['wall_collision_steps']} "
+        f"frozen_steps={s['frozen_steps']} yield_steps={s['yield_steps']} "
+        f"min_dist={s['min_dist']:.3f} live_steps={s['steps']} "
+        f"robot at ({final.r_pos[0].item():.3f}, {final.r_pos[1].item():.3f})")
+    for part, xs in times.items():
+        log(f"  {part}: median {statistics.median(xs) * 1e3:.2f} ms, "
+            f"p90 {pct(xs, 0.9) * 1e3:.2f} ms over {len(xs)} steps")
+    step_ms = [sum(x) for x in zip(times["forecast"], times["mpc"])]
+    log(f"  control step (forecast + MPC): median "
+        f"{statistics.median(step_ms) * 1e3:.2f} ms; episode wall {wall:.2f} s")
+    log(f"  cascade accepted the solution on {int(acc.sum().item())} of "
+        f"{len(accepted)} steps ({100 * acc.mean().item():.1f} %); eq_viol "
+        f"median {eq.median().item():.3e}, max {eq.max().item():.3e}; "
+        f"{launches} kde_loglik launches in {len(served)} forecasts")
+    if torch.device(device).type == "cuda":
+        check_live_kde(K, ranked)
+    return ocp, model, settings, record, launches
+
+
+def _rel_err(got, want):
+    return ((got.cpu().double() - want.cpu().double()).abs().max() /
+            max(1.0, want.abs().max().item())).item()
+
+
+def phase_cross_mpc(ocp, record, settings, device="cuda"):
+    """One MPC control step on the card against the same step on the CPU:
+    the same state, carry and served forecasts (the card's). One IPM
+    iteration from the card's initial guess must agree within
+    CROSS_ITER_TOL; the step's action within CROSS_ACTION_TOL in float64
+    and CROSS_ACTION_F32_TOL in float32."""
+    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    from sicnav_tpu_torch.mpc import campc as C
+    from sicnav_tpu_torch.mpc import ipm
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+    from sicnav_tpu_torch.mpc.ocp import OCP
+
+    cfg = protocol_env()
+    k, state, carry, (fc, lw) = record
+    ocp_cpu = OCP(ocp.cfg, device="cpu")
+    sides = {"card": (ocp, state, carry, fc, lw),
+             "cpu": (ocp_cpu,) + tuple(tree_map(lambda x: x.cpu(), x)
+                                       for x in (state, carry, fc, lw))}
+    one = dataclasses.replace(settings, n_iter=1)
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    z0, out = None, {}
+    for name, (o, st, ca, f, w) in sides.items():
+        view, mid, logw0, intent = SD.mpc_inputs(o, st, f, w)
+        params, _, (f_fn, c_fn) = C.step_problem(o, view, ca, cfg, mid,
+                                                 logw0, intent)
+        if z0 is None:
+            z0 = C._select_guess(o, ca, params)
+        z1, _ = ipm.solve(f_fn, c_fn, z0.to(st.r_pos.device), one)
+        t0 = time.perf_counter()
+        action, _, aux = SD.act_on_forecasts(o, st, ca, f, w, cfg, settings,
+                                             aux=True)
+        _sync(st.r_pos.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        action64, _, aux64 = SD.act_on_forecasts(
+            o, *(tree_map(f64, x) for x in (st, ca, f, w)), cfg, settings,
+            aux=True)
+        assert action64.dtype == torch.float64, action64.dtype
+        out[name] = dict(z1=z1, action=action.cpu().double(),
+                         action64=action64.cpu(), ms=ms,
+                         eq=aux.eq_viol.item(), eq64=aux64.eq_viol.item(),
+                         guess=bool(aux.use_guess),
+                         guess64=bool(aux64.use_guess))
+    card, cpu = out["card"], out["cpu"]
+    it_err = _rel_err(card["z1"], cpu["z1"])
+    act_err = (card["action"] - cpu["action"]).abs().max().item()
+    act64_err = (card["action64"] - cpu["action64"]).abs().max().item()
+    log(f"  MPC control step {k}: one IPM iteration from the same "
+        f"guess, card vs CPU max err {it_err:.3e} of max(1, |z|) (bound "
+        f"{CROSS_ITER_TOL}); float64 step's action: card "
+        f"{card['action64'].tolist()}, CPU {cpu['action64'].tolist()}, max "
+        f"abs err {act64_err:.3e} (bound {CROSS_ACTION_TOL}); float32 step's "
+        f"action: card {card['action'].tolist()}, CPU "
+        f"{cpu['action'].tolist()}, max abs err {act_err:.3e} (bound "
+        f"{CROSS_ACTION_F32_TOL}); eq_viol {card['eq']:.3e} on the card, "
+        f"{cpu['eq']:.3e} on the CPU (float64 {card['eq64']:.3e}, "
+        f"{cpu['eq64']:.3e}); float32 MPC step {card['ms']:.1f} ms on the "
+        f"card, {cpu['ms']:.1f} ms on the CPU")
+    assert it_err <= CROSS_ITER_TOL, it_err
+    assert card["guess64"] == cpu["guess64"], (card, cpu)
+    assert act64_err <= CROSS_ACTION_TOL, act64_err
+    assert act_err <= CROSS_ACTION_F32_TOL, act_err
+
+
+def device_events(prof):
+    """(name, duration in us) of every device activity a profile recorded,
+    read from the raw trace: parsing ~10^6 events into torch.profiler's
+    Python tree (key_averages) took minutes on the card's host."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def phase_profile_mpc(ocp, model, settings, steps=1):
+    """Where an MPC control step's time goes on the card: torch.profiler
+    (device activity only) over ``steps`` steps of the protocol loop after
+    one warm-up step. Prints the device's busy share, the launches per
+    control step and the kernels that take the most device time; returns
+    the launches per step."""
+    from torch.profiler import ProfilerActivity, profile
+    from sicnav_tpu_torch.diffusion import forecaster as FC
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+
+    cfg = protocol_env()
+    fcfg = FC.ForecasterConfig(num_samples=48, num_ret_samples=10, dt=cfg.dt)
+    state = crowd_sim.reset_host(cfg, 0, device="cuda")
+    carry = SD.init_carry(ocp, cfg.max_humans, fcfg, seed=SEED + 2)
+
+    def control_step(state, carry):
+        action, carry = SD.sicnav_diffusion_action(ocp, model, state, carry,
+                                                   cfg, fcfg, settings)
+        state, _, _ = crowd_sim.step_masked(state, action, cfg)
+        return state, carry
+
+    state, carry = control_step(state, carry)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, carry = control_step(state, carry)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    busy_us = sum(d for _, d in events)
+    if busy_us <= 0:
+        log("  profiler saw no device time: busy share not measured")
+        return None
+    by_name = {}
+    for name, d in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + d)
+    log(f"  {steps} MPC control step(s): wall {wall_us / 1e3:.2f} ms "
+        f"(profiled), device busy {busy_us / 1e3:.2f} ms "
+        f"({100 * busy_us / wall_us:.1f} %), {len(events)} device launches "
+        f"({len(events) / steps:.0f} per control step)")
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:10]:
+        log(f"  {t / 1e3:8.2f} ms {n:7d} x {name[:90]}")
+    return len(events) / steps
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -570,12 +889,20 @@ def main():
     with Phase("kernels"):
         entry = phase_kernels(K)
     with Phase("slice"):
-        model, launches = phase_slice(K)
-        entry["launches"] = launches
+        model, slice_launches = phase_slice(K)
+    with Phase("mpc"):
+        ocp, mpc_model, settings, record, mpc_launches = phase_mpc(K)
+        entry["launches"] = mpc_launches
+        entry["launches_by_path"] = {"mpc": mpc_launches,
+                                     "slice": slice_launches}
     with Phase("cross"):
         phase_cross(model)
+        phase_cross_mpc(ocp, record, settings)
     with Phase("profile"):
         phase_profile(model)
+        per_step = phase_profile_mpc(ocp, mpc_model, settings)
+        if per_step is not None:
+            log(f"  [mpc] launches per control step: {per_step:.0f}")
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

@@ -27,7 +27,7 @@ _GATES = ("i", "f", "g", "o")
 
 
 def _t(x):
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(x, np.float32)))
+    return torch.tensor(np.asarray(x, np.float32))
 
 
 def _dense(sd, prefix, p):
@@ -91,3 +91,10 @@ def jmid_state_dict(params) -> dict:
         _dense(sd, pre + ".ff1", p["Dense_1"])
         _layer_norm(sd, pre + ".norm1", p["LayerNorm_1"])
     return sd
+
+
+def load_jmid_npz(path) -> dict:
+    """The port's JMID state_dict from an ``.npz`` written by
+    ``scripts/convert_jmid_torch.py`` (numpy only: no JAX, Flax or Orbax)."""
+    with np.load(path) as f:
+        return {k: _t(f[k]) for k in f.files}

@@ -28,8 +28,9 @@ class EpisodeStats(NamedTuple):
     frozen_steps: torch.Tensor
     frozen_near_goal_steps: torch.Tensor  # frozen within 1 m of the goal
     danger_steps: torch.Tensor
-    yield_steps: torch.Tensor       # door-yield latch engaged; the latch is
-    frozen_yield_steps: torch.Tensor  # the MPC policy's (a later slice): 0
+    yield_steps: torch.Tensor       # steps with the policy's door-yield
+                                    # latch engaged (0 without the protocol)
+    frozen_yield_steps: torch.Tensor  # frozen steps under the latch
     min_dist: torch.Tensor          # min dmin over episode
     total_reward: torch.Tensor
     steps: torch.Tensor
@@ -51,10 +52,30 @@ def init_stats(cfg: EnvConfig, device) -> EpisodeStats:
         total_reward=f32(0.0), steps=i32())
 
 
+def _carry_field(carry, name):
+    """The field ``name`` (e.g. campc.CAMPCCarry's ``door_latch``) anywhere
+    in a carry of nested NamedTuples, or None when the policy has none."""
+    if isinstance(carry, tuple) and hasattr(carry, "_fields"):
+        if name in carry._fields:
+            return getattr(carry, name)
+        for x in carry:
+            found = _carry_field(x, name)
+            if found is not None:
+                return found
+    return None
+
+
+def _door_latch(carry, device):
+    latch = _carry_field(carry, "door_latch")
+    if latch is None:
+        return torch.zeros((), dtype=torch.bool, device=device)
+    return latch.to(torch.bool)
+
+
 def update_stats(stats: EpisodeStats, state: SimState, new_state: SimState,
-                 reward, info) -> EpisodeStats:
+                 reward, info, latch) -> EpisodeStats:
     """Fold one step's events into the episode aggregates (live steps only).
-    No ported policy has a door-yield latch yet, so the yield counts stay 0."""
+    ``latch``: the policy's door-yield latch after its action."""
     live = ~state.done
     near_goal = norm2(state.r_pos - state.r_goal) < 1.0
     return EpisodeStats(
@@ -68,8 +89,9 @@ def update_stats(stats: EpisodeStats, state: SimState, new_state: SimState,
         frozen_near_goal_steps=stats.frozen_near_goal_steps +
         (live & info.frozen & near_goal),
         danger_steps=stats.danger_steps + (live & info.danger),
-        yield_steps=stats.yield_steps,
-        frozen_yield_steps=stats.frozen_yield_steps,
+        yield_steps=stats.yield_steps + (live & latch),
+        frozen_yield_steps=stats.frozen_yield_steps +
+        (live & info.frozen & latch),
         min_dist=torch.minimum(stats.min_dist, torch.where(
             live, info.dmin, torch.full_like(info.dmin, math.inf))),
         total_reward=stats.total_reward + reward,
@@ -85,7 +107,8 @@ def rollout_episode_stateful(state: SimState, carry0, step_fn: Callable,
     pcarry = carry0
     for _ in range(max_steps):
         action, pcarry = step_fn(state, pcarry)
+        latch = _door_latch(pcarry, state.t.device)
         new_state, reward, info = crowd_sim.step_masked(state, action, cfg)
-        stats = update_stats(stats, state, new_state, reward, info)
+        stats = update_stats(stats, state, new_state, reward, info, latch)
         state = new_state
     return state, stats

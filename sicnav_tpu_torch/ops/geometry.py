@@ -145,3 +145,41 @@ def linspace(start, stop, num: int, device=None):
     step = torch.arange(div, dtype=torch.float32, device=device) / div
     out = start * (1 - step) + stop * step
     return torch.cat([out, stop.reshape(1)])
+
+
+# ---------------------------------------------------------------------------
+# Port-only helpers: jnp's derivative conventions under torch.func
+# ---------------------------------------------------------------------------
+# The MPC differentiates its residuals with torch.func where the reference
+# differentiates them with JAX. The two agree on values but not on
+# derivatives at a few kinks the MPC reaches: slacks and commanded speeds
+# are often exactly 0, where jnp.abs has derivative 1 and torch.abs 0;
+# jnp.maximum gives a tie half the derivative where torch.clamp passes it
+# whole; and jnp.maximum applies its derivative mask by multiplication, so
+# an infinite derivative upstream of an inactive branch (sqrt at 0) becomes
+# NaN, where torch's masked backward gives 0. The last one decides whether
+# the reference's interior-point step is finite (see sicnav_tpu_torch/mpc/
+# ipm.py), so the port keeps it. These helpers have jnp's values and jnp's
+# derivatives.
+
+def jabs(x):
+    """``jnp.abs``: derivative +1 at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def jmax(x, c):
+    """``jnp.maximum(x, c)`` for a Python float ``c``: derivative 1 where
+    x > c, 1/2 at a tie, 0 below, applied by multiplication."""
+    m = (x > c).to(x.dtype) + 0.5 * (x == c).to(x.dtype)
+    return m * x + (1.0 - m) * c
+
+
+def jmin(x, c):
+    """``jnp.minimum(x, c)`` for a Python float ``c``."""
+    m = (x < c).to(x.dtype) + 0.5 * (x == c).to(x.dtype)
+    return m * x + (1.0 - m) * c
+
+
+def jclip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` = minimum(maximum(x, lo), hi)."""
+    return jmin(jmax(x, lo), hi)

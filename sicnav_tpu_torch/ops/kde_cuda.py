@@ -30,14 +30,17 @@ _SMEM_LIMIT = 232448
 
 
 def kde_loglik_plain(y_white, log_Z):
-    """Plain PyTorch version: out[g, i] = logsumexp_j(-0.5 *
-    max(|y_i|^2 + |y_j|^2 - 2 y_i.y_j, 0) - log_Z[g]). (G, S, D), (G,) ->
-    (G, S). It takes the distance in the reference's Gram form; the kernel
-    takes it as sum_d (y_i[d] - y_j[d])^2, the same function."""
-    sq = (y_white * y_white).sum(dim=-1)
-    gram = torch.einsum("gsd,gtd->gst", y_white, y_white)
-    d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * gram
-    log_exp = -0.5 * torch.clamp(d2, min=0.0) - log_Z[:, None, None]
+    """Plain PyTorch version: out[g, i] = logsumexp_j(-0.5 * d2_ij -
+    log_Z[g]) with d2_ij = sum_d (y_i[d] - y_j[d])^2. (G, S, D), (G,) ->
+    (G, S). It takes the distance in difference form, as the kernel does:
+    d_ii is exactly 0 and no pair loses its distance to rounding when the
+    samples lie far from the origin. The reference's Gram form,
+    |y_i|^2 + |y_j|^2 - 2 y_i.y_j clamped at 0, is the same function, but in
+    float32 at |y|^2 near 1e9 it misses d_ii = 0 by hundreds, so the CPU
+    and the card would serve different top-k samples."""
+    diff = y_white[:, :, None, :] - y_white[:, None, :, :]
+    d2 = (diff * diff).sum(dim=-1)
+    log_exp = -0.5 * d2 - log_Z[:, None, None]
     return torch.logsumexp(log_exp, dim=-1)
 
 

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from sicnav_tpu_torch.ops.geometry import (
-    closest_point_on_segment, det2, dot2, norm2, normalize,
+    closest_point_on_segment, det2, dot2, jmax, norm2, normalize,
 )
 
 # RVO2's epsilon for LP degeneracy tests.
@@ -169,10 +169,13 @@ def edge_orca_line(pos, vel, rad, ep1, ep2, inv_th):
     oblique1 = (s < 0.0) & (dline_sq <= r_sq)
     oblique2 = (s > 1.0) & (dline_sq <= r_sq)
 
-    leg1 = torch.sqrt(torch.clamp(d1_sq - r_sq, min=0.0))
-    leg2 = torch.sqrt(torch.clamp(d2_sq - r_sq, min=0.0))
-    d1s = torch.clamp(d1_sq, min=1e-18)[..., None]
-    d2s = torch.clamp(d2_sq, min=1e-18)[..., None]
+    # jnp.maximum's derivative (geometry.jmax): inside the radius of an end
+    # point the reference's second derivatives here are NaN, and the MPC
+    # differentiates this function twice
+    leg1 = torch.sqrt(jmax(d1_sq - r_sq, 0.0))
+    leg2 = torch.sqrt(jmax(d2_sq - r_sq, 0.0))
+    d1s = jmax(d1_sq, 1e-18)[..., None]
+    d2s = jmax(d2_sq, 1e-18)[..., None]
     x1, y1 = rp1[..., 0], rp1[..., 1]
     x2, y2 = rp2[..., 0], rp2[..., 1]
     left1 = torch.stack([x1 * leg1 - y1 * rad, x1 * rad + y1 * leg1], -1) / d1s

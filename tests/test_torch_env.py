@@ -12,6 +12,7 @@ are held to the same 1e-5 on |v| * angle error.
 """
 
 import dataclasses
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -210,3 +211,77 @@ def test_rollout_episode_stateful():
     assert_tree_close(st, st_ref)
     assert_tree_close(f, f_ref)
 
+
+
+# the definitive protocol's environment: 3 humans in 3 slots, all moving
+# from the start, 30 s
+PROTOCOL = T_ref.EnvConfig(scenario="hallway_bottleneck",
+                           human_policy="orca_plus", human_num=3,
+                           max_humans=3, starts_moving=0, time_limit=30,
+                           robot_kinematics="unicycle")
+
+
+@pytest.mark.parametrize("case", [0, 3])
+def test_protocol_reset_and_steps(case):
+    """Reset and 20 masked steps at the protocol, each from the reference's
+    state, held as test_step_masked_sequence holds the default config."""
+    cfg = port_cfg(PROTOCOL)
+    s_ref = CS_ref.reset_host(PROTOCOL, case)
+    assert_tree_close(CS.reset_host(cfg, case, device="cpu"), s_ref)
+    assert tuple(s_ref.h_pos.shape) == (3, 2) and bool(s_ref.h_mask.all())
+    step_ref = jax.jit(CS_ref.step_masked, static_argnames="cfg")
+    for a in _actions(20, 10 + case):
+        nxt_ref, r_ref, i_ref = step_ref(s_ref, a, PROTOCOL)
+        nxt, r, i = CS.step_masked(to_torch(s_ref), torch.as_tensor(a), cfg)
+        assert_tree_close(nxt, nxt_ref)
+        assert_tree_close(i, i_ref)
+        np.testing.assert_allclose(r.numpy(), np.asarray(r_ref), atol=TOL)
+        s_ref = nxt_ref
+
+
+class _LatchCarry(NamedTuple):
+    """A policy carry with a door-yield latch, as campc.CAMPCCarry has one,
+    nested one level down as in the fused controller's carry."""
+    step: object
+    door_latch: object
+
+
+class _Outer(NamedTuple):
+    mpc: _LatchCarry
+
+
+LATCHED = {2, 3, 4, 9, 10, 15}          # steps after which the latch is set
+STILL = {3, 4, 10, 11}                  # steps with a zero action (frozen)
+
+
+def _latch_actions(k):
+    a = ACTIONS[k] if k not in STILL else np.zeros(2, np.float32)
+    return a, k in LATCHED
+
+
+def _ref_latch_fn(state, carry):
+    k = carry.mpc.step
+    acts = jnp.asarray(np.stack([_latch_actions(i)[0] for i in range(24)]))
+    latched = jnp.asarray([_latch_actions(i)[1] for i in range(24)])
+    return acts[k], _Outer(_LatchCarry(k + 1, latched[k]))
+
+
+def _port_latch_fn(state, carry):
+    k = carry.mpc.step
+    a, latched = _latch_actions(k)
+    return torch.as_tensor(a), _Outer(_LatchCarry(k + 1, torch.tensor(latched)))
+
+
+def test_rollout_counts_door_latch():
+    """The yield counts read the policy's door-yield latch from its carry,
+    on a run where the latch fires, some of it while the robot stands."""
+    s_ref = CS_ref.reset_host(PROTOCOL, 0)
+    carry_ref = _Outer(_LatchCarry(jnp.int32(0), jnp.array(False)))
+    f_ref, st_ref = RO_ref.rollout_episode_stateful(
+        s_ref, carry_ref, _ref_latch_fn, PROTOCOL, 20)
+    carry = _Outer(_LatchCarry(0, torch.tensor(False)))
+    f, st = RO.rollout_episode_stateful(to_torch(s_ref), carry,
+                                        _port_latch_fn, port_cfg(PROTOCOL), 20)
+    assert int(st_ref.yield_steps) > 0 and int(st_ref.frozen_yield_steps) > 0
+    assert_tree_close(st, st_ref)
+    assert_tree_close(f, f_ref)

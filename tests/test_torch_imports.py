@@ -23,6 +23,9 @@ from sicnav_tpu_torch.diffusion import mid as MID
 from sicnav_tpu_torch.diffusion import models as M
 from sicnav_tpu_torch.env import crowd_sim as CS
 from sicnav_tpu_torch.env import types as T
+from sicnav_tpu_torch.mpc import campc as C
+from sicnav_tpu_torch.mpc import ocp as OCP
+from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sicnav_tpu_torch"
@@ -44,6 +47,15 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", PY_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_scan_covers_the_mpc():
+    """The controller's modules are among the files scanned."""
+    scanned = {p.relative_to(PKG).as_posix() for p in PY_FILES
+               if PKG in p.parents}
+    for name in ("orca_lines", "ref_traj", "ocp", "ipm", "warmstart",
+                 "campc", "sicnav_diffusion"):
+        assert f"mpc/{name}.py" in scanned, name
 
 
 def test_scan_sees_a_forbidden_import(tmp_path):
@@ -76,6 +88,9 @@ def test_entry_points_default_to_cuda():
         lambda: FC.init_state(cfg.max_humans, FC.ForecasterConfig()),
         lambda: MID.JMIDModel(M.ModelConfig(context_dim=8, enc_rnn_dim=4,
                                             tf_layer=1)),
+        lambda: OCP.OCP(OCP.MPCConfig()),
+        lambda: C.make_policy(cfg),
+        lambda: SD.make_policy(cfg, None),
     ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"

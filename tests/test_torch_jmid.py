@@ -35,6 +35,8 @@ TOL = 1e-4
 SMALL = dict(context_dim=32, enc_rnn_dim=16, tf_layer=2, n_heads=4)
 CKPT = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
                     "jmid_hallway")
+WEIGHTS = os.path.join(os.path.dirname(__file__), "..", "weights",
+                       "jmid_hallway.npz")
 
 
 def _scene(seed, A=5, T_h=6, T_f=8, absent=(2, 4)):
@@ -176,10 +178,16 @@ def test_hallway_checkpoint_full_width():
     jb = jax.tree.map(jnp.asarray, batch)
     params = MID_ref.load_checkpoint(os.path.abspath(CKPT), _init(ref, batch))
     ref, params, port = _models(cfg_kw, batch, params)
+    # the weights the card runs: the converted file committed with the port,
+    # read with numpy alone, is the same predictor
+    from_file = MID.JMIDModel(M.ModelConfig(**cfg_kw), joint=True,
+                              device="cpu")
+    from_file.load_state_dict(convert.load_jmid_npz(WEIGHTS), strict=True)
 
     ctx_ref = ref.apply(params, jb, method=MID_ref.JMIDModel.encode)
     ctx = port.encode(_to_torch(batch))
     _close(ctx, ctx_ref)
+    _close(from_file.encode(_to_torch(batch)), ctx_ref)
 
     rng = np.random.default_rng(5)
     x = rng.normal(size=(8, 8, 2)).astype(np.float32)
@@ -190,3 +198,22 @@ def test_hallway_checkpoint_full_width():
     got = port.denoise(torch.as_tensor(x)[None], torch.as_tensor(beta)[None],
                        ctx[None], _to_torch(batch))[0]
     _close(got, want)
+    got = from_file.denoise(torch.as_tensor(x)[None],
+                            torch.as_tensor(beta)[None], ctx[None],
+                            _to_torch(batch))[0]
+    _close(got, want)
+
+
+def test_converted_weights_regenerate():
+    """scripts/convert_jmid_torch.py, run on the repo's checkpoint, gives
+    the committed file's arrays exactly."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "scripts"))
+    import convert_jmid_torch
+    fresh = convert_jmid_torch.convert(os.path.abspath(CKPT))
+    with np.load(WEIGHTS) as f:
+        assert sorted(f.files) == sorted(fresh)
+        for k in f.files:
+            assert f[k].dtype == np.float32
+            np.testing.assert_array_equal(f[k], fresh[k], err_msg=k)

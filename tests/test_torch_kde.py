@@ -30,13 +30,14 @@ from sicnav_tpu.diffusion import kde as KDE_ref
 from sicnav_tpu.ops import kde_pallas as K_ref
 from sicnav_tpu_torch.diffusion import kde as KDE
 from sicnav_tpu_torch.ops import kde_cuda as K
-from tests.test_torch_kde_kernel import (SHAPES, TOL, _assert_pairs_weigh,
-                                         _forecasts, _inputs)
+from tests.test_torch_kde_kernel import (PROTOCOL_SHAPES, SHAPES, TOL,
+                                         _assert_pairs_weigh, _forecasts,
+                                         _inputs)
 
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("G,S,D", SHAPES)
+@pytest.mark.parametrize("G,S,D", SHAPES + PROTOCOL_SHAPES)
 def test_plain_matches_pallas_kernel(G, S, D):
     y, z = _inputs(G, S, D)
     want = K_ref._kde_loglik_pallas_impl(jnp.asarray(y), jnp.asarray(z),
@@ -134,3 +135,74 @@ def test_find_nvcc_names_the_paths_it_tried(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found") as err:
         build.find_nvcc()
     assert str(tmp_path / "bin" / "nvcc") in str(err.value)
+
+
+def test_protocol_ranking_difference_form():
+    """At the definitive protocol with the trained jmid_hallway checkpoint
+    (read by the reference from Orbax), the port's plain version ranks the
+    reference forecaster's own samples as float64 does.
+
+    Host case 0 with a DWA robot, 12 steps: the reference forecaster draws
+    48 samples per step; the port's joint ranking (difference-form distance,
+    float32) must serve the same top 10 as the same ranking in float64 on
+    every step from the fourth on (the first steps have one to three frames
+    of history) where float64's 10th and 11th likelihoods differ by more
+    than 1e-5 (closer ties are rounding's to break)."""
+    import math
+    import os
+
+    from sicnav_tpu.diffusion import forecaster as FC_ref
+    from sicnav_tpu.diffusion import mid as MID_ref
+    from sicnav_tpu.diffusion import models as M_ref
+    from sicnav_tpu.env import crowd_sim as CS_ref
+    from sicnav_tpu.env import types as T_ref
+    from sicnav_tpu.policies import dwa as D_ref
+    from sicnav_tpu_torch.ops.geometry import linspace
+    from tests.test_torch_slice import _ref_samples
+
+    cfg = T_ref.EnvConfig(scenario="hallway_bottleneck",
+                          human_policy="orca_plus", human_num=3,
+                          max_humans=3, starts_moving=0, time_limit=30,
+                          robot_kinematics="unicycle")
+    fcfg = FC_ref.ForecasterConfig(num_samples=48, num_ret_samples=10,
+                                   dt=cfg.dt)
+    model = MID_ref.JMIDModel(M_ref.ModelConfig(context_dim=128, tf_layer=2),
+                              joint=True)
+    s = CS_ref.reset_host(cfg, 0)
+    fstate = FC_ref.init_state(cfg.max_humans, fcfg)
+    key = jax.random.PRNGKey(0)
+    params = model.init({"params": key, "dropout": key},
+                        FC_ref._scene_batch_from_hist(fstate, s, fcfg), key)
+    ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints",
+                        "jmid_hallway")
+    params = MID_ref.load_checkpoint(os.path.abspath(ckpt), params)
+    samples_fn = jax.jit(_ref_samples, static_argnames=("model", "cfg"))
+    dwa = jax.jit(D_ref.dwa_policy, static_argnames="env_cfg")
+    step = jax.jit(CS_ref.step_masked, static_argnames="cfg")
+
+    def lik64(fc):
+        S, H, T, _ = fc.shape
+        preds = fc.permute(2, 0, 1, 3).reshape(T, S, H * 2).double()
+        bw = torch.exp(linspace(math.log(0.01), math.log(0.1), T))
+        ll = K.kde_loglik_fused(preds, bw)
+        return (ll - torch.logsumexp(ll, dim=1, keepdim=True)).sum(0)
+
+    n_decided = 0
+    for k in range(12):
+        key, k_fc = jax.random.split(key)
+        fstate = FC_ref.update_state_hists(fstate, s, fcfg)
+        fc = torch.as_tensor(np.asarray(samples_fn(model, params, fstate, s,
+                                                   k_fc, fcfg)))
+        top, _ = KDE.most_likely_samples(fc, 10, joint=True)
+        lik = lik64(fc)
+        order = torch.argsort(lik, descending=True)
+        gap = (lik[order[9]] - lik[order[10]]).item()
+        if k >= 4 and gap > 1e-5:
+            n_decided += 1
+            want = {tuple(np.round(fc[i].numpy().ravel(), 6).tolist())
+                    for i in order[:10].tolist()}
+            got = {tuple(np.round(x.numpy().ravel(), 6).tolist())
+                   for x in top.permute(1, 0, 2, 3)}
+            assert got == want, (k, gap)
+        s, _, _ = step(s, dwa(s, cfg), cfg)
+    assert n_decided >= 4, n_decided

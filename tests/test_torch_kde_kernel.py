@@ -23,6 +23,9 @@ from sicnav_tpu_torch.ops import kde_cuda as K
 TOL = 2e-4
 SHAPES = [(1, 7, 2), (3, 20, 24), (5, 33, 12), (8, 48, 16)]
 MAIN_PATH_SHAPES = [(8, 48, 16), (64, 48, 2)]
+# the definitive protocol's rankings (3 humans): joint (8, 48, 6), iMID
+# (24, 48, 2)
+PROTOCOL_SHAPES = [(8, 48, 6), (24, 48, 2)]
 # S > 64 and not a multiple of 32, odd D; S > 128 at an instantiated D; a
 # wide D in the masked instantiation; shared memory above the default 48 KB,
 # which the kernel takes only after opting in
@@ -97,7 +100,7 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,S,D", SHAPES + MAIN_PATH_SHAPES[1:] +
-                         KERNEL_SHAPES)
+                         PROTOCOL_SHAPES + KERNEL_SHAPES)
 def test_cuda_kernel_matches_plain(G, S, D):
     _cuda_or_skip()
     y, z = _inputs(G, S, D)

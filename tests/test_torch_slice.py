@@ -28,6 +28,7 @@ import pathlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from sicnav_tpu.diffusion import forecaster as FC_ref
@@ -91,8 +92,20 @@ def _port_samples(model, fstate, sim, cfg, x_T):
     return torch.where(in_cluster[None, :, None, None], samples, cv[None])
 
 
-def test_slice_loop_matches_reference():
-    cfg_ref = T_ref.EnvConfig()
+# the shipped env defaults (3 humans in 8 slots, starting over 10 steps,
+# 15 s) and the definitive protocol's (3 in 3, all at once, 30 s)
+CONFIGS = {
+    "defaults": T_ref.EnvConfig(),
+    "protocol": T_ref.EnvConfig(scenario="hallway_bottleneck",
+                                human_policy="orca_plus", human_num=3,
+                                max_humans=3, starts_moving=0, time_limit=30,
+                                robot_kinematics="unicycle"),
+}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_slice_loop_matches_reference(config):
+    cfg_ref = CONFIGS[config]
     cfg = _port_cfg(cfg_ref)
     fcfg_ref = FC_ref.ForecasterConfig(num_samples=48, num_ret_samples=10,
                                        ddim_stride=20, dt=cfg_ref.dt)
@@ -172,3 +185,18 @@ def test_chip_smoke_main_path_rehearsal():
         kde_cuda, device="cpu", mcfg=M.ModelConfig(**SMALL), max_steps=3)
     assert launches == 0                   # CPU tensors take the plain version
     chip_smoke.phase_cross(model, device="cpu")
+
+
+def test_chip_smoke_mpc_rehearsal():
+    """chip_smoke.py's main path (the protocol's MPC loop with the trained
+    weights) and its MPC cross-check, run for two steps on the CPU."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from sicnav_tpu_torch.ops import kde_cuda
+
+    ocp, model, settings, record, launches = chip_smoke.phase_mpc(
+        kde_cuda, device="cpu", max_steps=2)
+    assert launches == 0                   # CPU tensors take the plain version
+    assert settings.n_iter == 30 and ocp.cfg.robot_nx == 8
+    chip_smoke.phase_cross_mpc(ocp, record, settings, device="cpu")
