@@ -48,6 +48,30 @@ Phases, in order; each prints one line with its own seconds:
 7. profile  torch.profiler over three DWA-loop steps and over one MPC
             control step: the device's busy share, the launches per control
             step and the kernels that take the most device time.
+8. batch    the main path at B = BATCH episodes: host cases 0..BATCH-1 of
+            the protocol, the trained weights, IPMSettings(n_iter=30),
+            through sicnav_diffusion.make_policy(batch=True) and
+            rollout.batch_rollout_stateful, for BATCH_STEPS batched control
+            steps. Every forecast and action is checked; the kernel must
+            have been launched once per batched step, on (BATCH * 8, 48, 6),
+            and is held against its plain version on each input. It prints
+            env / forecast / MPC ms per batched step (median, p90), the
+            episode-steps per second beside the mpc phase's B = 1 rate, the
+            cascade's accept share and the peak device memory. Gate: control
+            step CROSS_STEP of cases 0..GATE_CASES-1 in float64, batched once
+            and unbatched once per case, from the same states, carries and
+            served forecasts: cascade branches equal, actions within
+            BATCH_ACTION_TOL except on a step that float64 rounding alone
+            decides (phase_batch_gate), and every case within
+            BATCH_ACTION_TOL at GATE_SHORT_ITERS IPM iterations. Then
+            torch.profiler over one batched step: its
+            launches (at most BATCH_LAUNCH_RATIO times the unbatched
+            step's), busy share and top kernels.
+9. harness  harness.evaluate_policy with the batched DWA policy over host
+            cases 0..BATCH-1 of the protocol at the full 122 steps, one
+            batch, with a progress file under build/; the summary and the
+            wall time. Gate: a second call with the same progress file
+            resumes the batch without stepping and returns the same summary.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -79,6 +103,27 @@ MAIN_KDE_SHAPE = (8, 48, 16)    # DWA slice's joint ranking: G = horizon, D = 2 
 IMID_KDE_SHAPE = (64, 48, 2)    # iMID ranking: G = 8 * max_humans
 PROTOCOL_KDE_SHAPE = (8, 48, 6)  # the protocol's joint ranking: 3 humans
 PROTOCOL_IMID_SHAPE = (24, 48, 2)  # the protocol's iMID ranking
+BATCH = 10              # episodes per batched control step (the reference's suites)
+BATCH_KDE_SHAPE = (8 * BATCH, 48, 6)  # the batched joint ranking: B x horizon groups
+BATCH_STEPS = 6         # batched control steps of the batch phase
+GATE_CASES = 3          # cases of the batched-vs-unbatched float64 gate
+# The batched step against the unbatched one in float64: the same NLPs in
+# other kernels (batched products, cuBLAS's batched LU for cuSOLVER's);
+# float32 would move the action by up to 1e-2, so the gate runs in float64.
+# Some steps amplify even float64 rounding: at control step 2 of host case
+# 0 (the batch's), the batched and unbatched solves agreed to 5e-14 of z
+# after 3 IPM iterations, 1e-7 after 10 and 4e-2 after 30, and the same
+# unbatched step moved its action by 2.1e-4 between the card and the CPU.
+# Such a step (card and CPU unbatched more than BATCH_ACTION_TOL apart) is
+# decided by rounding; there the batched action is held to
+# CROSS_ACTION_F32_TOL, and at most one gate case may be such a step. Every
+# case is also held to BATCH_ACTION_TOL, with no exception, on the same step
+# cut to GATE_SHORT_ITERS IPM iterations, before rounding has grown.
+BATCH_ACTION_TOL = 1e-6
+GATE_SHORT_ITERS = 3
+# a batched step's launches against the unbatched step's: vmap batches
+# each op once for all episodes; a loop over episodes would make ~BATCH x
+BATCH_LAUNCH_RATIO = 2.0
 WEIGHTS = os.path.join(ROOT, "weights", "jmid_hallway.npz")
 MPC_STEPS = 20          # control steps of the mpc phase (case 0 ends at step 18)
 MPC_IPM_ITERS = 30      # the protocol's IPMSettings(n_iter=30)
@@ -316,7 +361,7 @@ def phase_kernels(K):
     timings = {}
     for G, S, D in KDE_SHAPES + [RAGGED_KDE_SHAPE, MAIN_KDE_SHAPE,
                                  IMID_KDE_SHAPE, PROTOCOL_KDE_SHAPE,
-                                 PROTOCOL_IMID_SHAPE]:
+                                 PROTOCOL_IMID_SHAPE, BATCH_KDE_SHAPE]:
         y, z = kde_inputs(G, S, D, gen)
         err, share = check_kde(K, y, z)
         # the check must see the pair terms: most rows get >10 % from them
@@ -337,15 +382,21 @@ def phase_kernels(K):
             f"{bound * 1e3:.4f} us; per call with host: kernel "
             f"{call * 1e3:.2f} us, plain {plain_call * 1e3:.2f} us")
     max_err = max(max_err, check_far_kde(K, gen))
-    # the main path is now the protocol's MPC loop: its ranking's shape
-    ms, plain_ms = timings[PROTOCOL_KDE_SHAPE]
-    bound, bound_by = kde_bound_ms(*PROTOCOL_KDE_SHAPE)
+    # the main path is now the batched protocol loop: its ranking's shape;
+    # the one-episode loop's beside it
+    per_shape = {}
+    for shape in (BATCH_KDE_SHAPE, PROTOCOL_KDE_SHAPE):
+        ms, plain_ms = timings[shape]
+        bound, bound_by = kde_bound_ms(*shape)
+        per_shape["x".join(map(str, shape))] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by}
+    main = per_shape["x".join(map(str, BATCH_KDE_SHAPE))]
     return {"name": "kde_loglik", "route": "cuda",
             "source": "sicnav_tpu_torch/csrc/kde.cu",
             "replaces": "sicnav_tpu/ops/kde_pallas.py:33",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+            "launches": None, "max_abs_err": max_err, **main,
+            "library_ms": None, "per_shape": per_shape}
 
 
 def check_live_kde(K, ranked):
@@ -612,13 +663,14 @@ def _wrap(module, name, wrapper):
     return lambda: setattr(module, name, orig)
 
 
-def phase_mpc(K, device="cuda", max_steps=None):
+def phase_mpc(K, device="cuda", max_steps=None, measured=None):
     """The main path: the SICNav-Diffusion closed loop at the definitive
     protocol, through sicnav_diffusion.make_policy and
     rollout_episode_stateful, with the trained weights. ``device`` and
     ``max_steps`` exist for tests/test_torch_slice.py's CPU rehearsal.
     Returns (ocp, model, settings, (k, state, carry, served forecasts) of
-    step k = CROSS_STEP or the last, launches)."""
+    step k = CROSS_STEP or the last, launches); puts the median seconds of
+    a control step with its env step into ``measured["b1_step_s"]``."""
     from sicnav_tpu_torch.diffusion import forecaster as FC
     from sicnav_tpu_torch.diffusion import kde as KDE
     from sicnav_tpu_torch.env import crowd_sim
@@ -726,6 +778,9 @@ def phase_mpc(K, device="cuda", max_steps=None):
     step_ms = [sum(x) for x in zip(times["forecast"], times["mpc"])]
     log(f"  control step (forecast + MPC): median "
         f"{statistics.median(step_ms) * 1e3:.2f} ms; episode wall {wall:.2f} s")
+    if measured is not None:
+        measured["b1_step_s"] = (statistics.median(step_ms) +
+                                 statistics.median(times["env"]))
     log(f"  cascade accepted the solution on {int(acc.sum().item())} of "
         f"{len(accepted)} steps ({100 * acc.mean().item():.1f} %); eq_viol "
         f"median {eq.median().item():.3e}, max {eq.max().item():.3e}; "
@@ -864,6 +919,317 @@ def phase_profile_mpc(ocp, model, settings, steps=1):
     return len(events) / steps
 
 
+def phase_batch(K, device="cuda", n_episodes=BATCH, steps=BATCH_STEPS,
+                gate_cases=GATE_CASES, n_iter=MPC_IPM_ITERS, measured=None):
+    """The main path at B = ``n_episodes``: host cases 0..B-1 of the
+    protocol advance together through sicnav_diffusion.make_policy(
+    batch=True) and rollout.batch_rollout_stateful for ``steps`` batched
+    control steps, then the float64 gate on control step CROSS_STEP. The
+    keyword arguments exist for the CPU rehearsal
+    (tests/test_torch_batch_mpc.py). Returns (ocp, model, settings,
+    (final states, their carries), kde launches)."""
+    from sicnav_tpu_torch.diffusion import forecaster as FC
+    from sicnav_tpu_torch.diffusion import kde as KDE
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.env.rollout import batch_rollout_stateful
+    from sicnav_tpu_torch.mpc import ipm
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = protocol_env()
+    fcfg = FC.ForecasterConfig(num_samples=48, num_ret_samples=10, dt=cfg.dt)
+    settings = ipm.IPMSettings(n_iter=n_iter)
+    model = trained_model(device)
+    ocp, init_carry_fn, step_fn = SD.make_policy(
+        cfg, model, fcfg=fcfg, settings=settings, device=device, batch=True)
+    cases = list(range(n_episodes))
+    states = crowd_sim.reset_batch(cfg, cases, device=device)
+    carries = init_carry_fn(cases)
+
+    times = {"env": [], "forecast": [], "mpc": []}
+    served, ranked, accepted, actions = [], [], [], []
+    last, record, carried = [None], [], [carries]
+
+    def timed_forecast(orig):
+        def fn(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            _sync(device)
+            times["forecast"].append(time.perf_counter() - t0)
+            served.append(out)
+            return out
+        return fn
+
+    def kept_kde(orig):
+        def fn(preds, bandwidth):
+            ranked.append((preds, bandwidth))
+            return orig(preds, bandwidth)
+        return fn
+
+    def timed_step(states, carries):
+        _sync(device)
+        t0 = time.perf_counter()
+        if last[0] is not None:
+            times["env"].append(t0 - last[0])
+        action, new_carries = step_fn(states, carries)
+        _sync(device)
+        t1 = time.perf_counter()
+        times["mpc"].append(t1 - t0 - times["forecast"][-1])
+        accepted.append(new_carries.mpc.prev_ok)
+        actions.append(action)
+        carried[0] = new_carries
+        if len(actions) == min(CROSS_STEP, steps - 1) + 1:
+            record[:] = [len(actions) - 1, states, carries.mpc, served[-1]]
+        last[0] = t1
+        return action, new_carries
+
+    restore = [_wrap(FC, "predict_ret_best", timed_forecast),
+               _wrap(KDE, "kde_loglik_fused", kept_kde)]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    K.kde_loglik.launches = 0
+    try:
+        t0 = time.perf_counter()
+        final, stats = batch_rollout_stateful(states, carries, timed_step,
+                                              cfg, steps)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        for r in restore:
+            r()
+    launches = K.kde_loglik.launches
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    B, H, k, F = n_episodes, cfg.max_humans, fcfg.num_ret_samples, fcfg.horizon
+    assert len(served) == steps == len(actions) == len(ranked)
+    for fc, lw in served:
+        assert tuple(fc.shape) == (B, H, k, F + 1, 2), tuple(fc.shape)
+        for i in range(B):
+            check_forecast(fc[i], lw[i], H, k, F)
+    for a in actions:
+        assert tuple(a.shape) == (B, 2) and bool(torch.isfinite(a).all()), a
+    for preds, _ in ranked:
+        assert tuple(preds.shape) == (8 * B, 48, 2 * H), tuple(preds.shape)
+    if cuda:
+        assert launches == steps, (launches, steps)
+    assert bool(torch.isfinite(final.h_pos).all())
+    acc = torch.stack(accepted).float()
+    log(f"  {B} protocol episodes (host cases 0-{B - 1}), {steps} batched "
+        f"control steps of 122, IPM {settings.n_iter} iterations: "
+        f"success {stats.success.sum().item()}, collision episodes "
+        f"{(stats.collision_steps > 0).sum().item()}, live episode-steps "
+        f"{stats.steps.sum().item()}")
+    for part, xs in times.items():
+        log(f"  {part} per batched step: median "
+            f"{statistics.median(xs) * 1e3:.2f} ms, p90 "
+            f"{pct(xs, 0.9) * 1e3:.2f} ms over {len(xs)} steps")
+    step_s = (statistics.median([f + m for f, m in zip(times["forecast"],
+                                                       times["mpc"])]) +
+              statistics.median(times["env"]))
+    rate = B / step_s
+    b1 = (measured or {}).get("b1_step_s")
+    b1_text = (f"; B = 1 (mpc phase): {1 / b1:.4f} episode-steps/s, "
+               f"{rate * b1:.2f}x" if b1 else "")
+    log(f"  batched control step with its env step: median {step_s * 1e3:.2f}"
+        f" ms; {rate:.4f} episode-steps/s at B = {B}{b1_text}; rollout wall "
+        f"{wall:.2f} s")
+    log(f"  cascade accepted the solution on {int(acc.sum().item())} of "
+        f"{acc.numel()} episode-steps ({100 * acc.mean().item():.1f} %); "
+        f"{launches} kde_loglik launches in {steps} batched steps, on "
+        f"{tuple(ranked[0][0].shape)}")
+    if peak is not None:
+        log(f"  peak device memory (max_memory_allocated): "
+            f"{peak / 2**20:.1f} MiB")
+    if measured is not None:
+        measured["batch_step_s"] = step_s
+    if cuda:
+        check_live_kde(K, ranked)
+    phase_batch_gate(ocp, record, settings, gate_cases)
+    return ocp, model, settings, (final, carried[0]), launches
+
+
+def phase_batch_gate(ocp_batch, record, settings, n):
+    """Control step k of cases 0..n-1 in float64: the batched step once for
+    the n episodes, the unbatched port step once per episode, from the same
+    states, carries and served forecasts, on the same device. Every cascade
+    branch equal; each action within BATCH_ACTION_TOL, unless the unbatched
+    step itself moves by more than that between this device and the CPU
+    (rounding decides the step; see BATCH_ACTION_TOL's note): then within
+    CROSS_ACTION_F32_TOL. At most one case may be decided by rounding. Then
+    the same step at GATE_SHORT_ITERS IPM iterations: every action within
+    BATCH_ACTION_TOL and every branch equal."""
+    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+    from sicnav_tpu_torch.mpc.ocp import OCP
+
+    cfg = protocol_env()
+    k, states, carries, (fc, lw) = record
+
+    def f64(x):
+        return x.double() if x.is_floating_point() else x
+
+    st, ca, fc, lw = (tree_map(lambda x: f64(x[:n]), t)
+                      for t in (states, carries, fc, lw))
+    dev = st.r_pos.device
+    t0 = time.perf_counter()
+    a_b, _, aux_b = SD.act_on_forecasts_batch(ocp_batch, st, ca, fc, lw, cfg,
+                                              settings, aux=True)
+    _sync(dev)
+    ms_b = (time.perf_counter() - t0) * 1e3
+    ocp_1 = OCP(ocp_batch.cfg, device=dev)
+    branches = ("use_guess", "sol_feasible", "sol_realistic", "cost_worse",
+                "braked", "rescued")
+    errs, ms_1, decided_by_rounding = [], [], []
+    for i in range(n):
+        one = [tree_map(lambda x: x[i], t) for t in (st, ca, fc, lw)]
+        t0 = time.perf_counter()
+        a_i, _, aux_i = SD.act_on_forecasts(ocp_1, *one, cfg, settings,
+                                            aux=True)
+        _sync(dev)
+        ms_1.append((time.perf_counter() - t0) * 1e3)
+        assert a_i.dtype == torch.float64 == a_b.dtype
+        errs.append((a_b[i] - a_i).abs().max().item())
+        for name in branches:
+            got, want = getattr(aux_b, name)[i], getattr(aux_i, name)
+            assert bool(got == want), (i, name, got, want)
+        note = ""
+        if errs[-1] > BATCH_ACTION_TOL:
+            # the same unbatched step on the CPU: how far rounding alone
+            # moves it
+            a_cpu = SD.act_on_forecasts(
+                OCP(ocp_batch.cfg, device="cpu"),
+                *(tree_map(lambda x: x.cpu(), t) for t in one), cfg,
+                settings)[0]
+            e_cpu = (a_i.cpu() - a_cpu).abs().max().item()
+            note = (f"; the unbatched step on the CPU {a_cpu.tolist()}, "
+                    f"{e_cpu:.3e} from the card's")
+            assert e_cpu > BATCH_ACTION_TOL, (i, errs[-1], e_cpu)
+            assert errs[-1] <= CROSS_ACTION_F32_TOL, (i, errs[-1])
+            decided_by_rounding.append(i)
+        log(f"  gate case {i}, control step {k}: batched action "
+            f"{a_b[i].tolist()}, unbatched {a_i.tolist()}, max abs err "
+            f"{errs[-1]:.3e}; use_guess {bool(aux_i.use_guess)}, braked "
+            f"{bool(aux_i.braked)} on both{note}")
+    strict = [e for i, e in enumerate(errs) if i not in decided_by_rounding]
+    log(f"  float64 gate: cascade branches equal; max abs err "
+        f"{max(strict):.3e} on the {len(strict)} cases float64 decides "
+        f"(bound {BATCH_ACTION_TOL}); cases decided by rounding "
+        f"{decided_by_rounding} (bound {CROSS_ACTION_F32_TOL}); batched "
+        f"step {ms_b:.1f} ms for {n} episodes, unbatched {sum(ms_1):.1f} ms")
+    assert len(decided_by_rounding) <= 1, decided_by_rounding
+
+    short = dataclasses.replace(settings, n_iter=GATE_SHORT_ITERS)
+    a_b, _, aux_b = SD.act_on_forecasts_batch(ocp_batch, st, ca, fc, lw, cfg,
+                                              short, aux=True)
+    errs = []
+    for i in range(n):
+        a_i, _, aux_i = SD.act_on_forecasts(
+            ocp_1, *(tree_map(lambda x: x[i], t) for t in (st, ca, fc, lw)),
+            cfg, short, aux=True)
+        errs.append((a_b[i] - a_i).abs().max().item())
+        for name in branches:
+            got, want = getattr(aux_b, name)[i], getattr(aux_i, name)
+            assert bool(got == want), (i, name, got, want)
+    log(f"  float64 gate at {GATE_SHORT_ITERS} IPM iterations: max abs err "
+        f"{max(errs):.3e} over the {n} cases (bound {BATCH_ACTION_TOL}), "
+        f"cascade branches equal")
+    assert max(errs) <= BATCH_ACTION_TOL, errs
+
+
+def phase_profile_batch(ocp, model, settings, final):
+    """torch.profiler (device activity only) over one batched control step
+    from the batch phase's last states and carries. Prints the launches,
+    the device's busy share and the kernels that take the most device time;
+    returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from sicnav_tpu_torch.diffusion import forecaster as FC
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+
+    cfg = protocol_env()
+    fcfg = FC.ForecasterConfig(num_samples=48, num_ret_samples=10, dt=cfg.dt)
+    states, carries = final
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        action, carries = SD.sicnav_diffusion_action_batch(
+            ocp, model, states, carries, cfg, fcfg, settings)
+        crowd_sim.step_masked(states, action, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    busy_us = sum(d for _, d in events)
+    assert busy_us > 0, "the profiler saw no device time"
+    by_name = {}
+    for name, d in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + d)
+    B = action.shape[0]
+    log(f"  1 batched control step (B = {B}): wall {wall_us / 1e3:.2f} ms "
+        f"(profiled), device busy {busy_us / 1e3:.2f} ms "
+        f"({100 * busy_us / wall_us:.1f} %), {len(events)} device launches")
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:10]:
+        log(f"  {t / 1e3:8.2f} ms {n:7d} x {name[:90]}")
+    kde = [(n, t) for name, (n, t) in by_name.items()
+           if "kde_loglik_kernel" in name]
+    for n, t in kde:
+        log(f"  kde_loglik_kernel: {n} launch(es), {t / n:.2f} us each")
+    return len(events)
+
+
+def phase_harness(device="cuda", n_cases=BATCH, progress_file=None):
+    """harness.evaluate_policy end to end: the batched DWA policy over host
+    cases 0..n_cases-1 of the protocol at the full 122 steps, one batch,
+    with a progress file; then the same call again, which must resume the
+    batch from the file without stepping and return the same summary."""
+    from sicnav_tpu_torch import harness
+    from sicnav_tpu_torch.env import rollout
+    from sicnav_tpu_torch.policies.dwa import dwa_policy_batch
+
+    cfg = protocol_env()
+    if progress_file is None:
+        progress_file = os.path.join(ROOT, "build", "harness_progress.jsonl")
+    os.makedirs(os.path.dirname(progress_file), exist_ok=True)
+    if os.path.exists(progress_file):
+        os.remove(progress_file)
+
+    def policy(states):
+        return dwa_policy_batch(states, cfg)
+
+    def run():
+        t0 = time.perf_counter()
+        res = harness.evaluate_policy(policy, cfg, n_cases, batch=n_cases,
+                                      progress_file=progress_file,
+                                      device=device)
+        _sync(device)
+        return res, time.perf_counter() - t0
+
+    first, wall = run()
+    rollouts = []
+
+    def counted(orig):
+        def fn(*args, **kwargs):
+            rollouts.append(1)
+            return orig(*args, **kwargs)
+        return fn
+
+    restore = _wrap(rollout, "batch_rollout", counted)
+    try:
+        second, wall2 = run()
+    finally:
+        restore()
+    assert first["num_cases"] == n_cases, first
+    assert not rollouts, "the resumed call stepped the batch again"
+    assert second == first, (first, second)
+    log(f"  DWA over host cases 0-{n_cases - 1} (122 steps, batch "
+        f"{n_cases}): {json.dumps(first)}")
+    log(f"  evaluate_policy wall {wall:.2f} s; resumed from "
+        f"{os.path.relpath(progress_file, ROOT)} in {wall2:.3f} s with the "
+        f"same summary")
+    return first
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -890,11 +1256,10 @@ def main():
         entry = phase_kernels(K)
     with Phase("slice"):
         model, slice_launches = phase_slice(K)
+    measured = {}
     with Phase("mpc"):
-        ocp, mpc_model, settings, record, mpc_launches = phase_mpc(K)
-        entry["launches"] = mpc_launches
-        entry["launches_by_path"] = {"mpc": mpc_launches,
-                                     "slice": slice_launches}
+        ocp, mpc_model, settings, record, mpc_launches = phase_mpc(
+            K, measured=measured)
     with Phase("cross"):
         phase_cross(model)
         phase_cross_mpc(ocp, record, settings)
@@ -903,6 +1268,22 @@ def main():
         per_step = phase_profile_mpc(ocp, mpc_model, settings)
         if per_step is not None:
             log(f"  [mpc] launches per control step: {per_step:.0f}")
+    with Phase("batch"):
+        ocp_b, _, settings_b, final, batch_launches = phase_batch(
+            K, measured=measured)
+        per_step_b = phase_profile_batch(ocp_b, mpc_model, settings_b, final)
+        assert per_step is not None, "no unbatched launch count to hold to"
+        log(f"  [batch] launches per batched control step: {per_step_b}, "
+            f"{per_step_b / per_step:.3f}x the unbatched step's {per_step:.0f}"
+            f" (bound {BATCH_LAUNCH_RATIO}x)")
+        assert per_step_b <= BATCH_LAUNCH_RATIO * per_step, (per_step_b,
+                                                             per_step)
+        entry["launches"] = batch_launches
+        entry["launches_by_path"] = {"batch": batch_launches,
+                                     "mpc": mpc_launches,
+                                     "slice": slice_launches}
+    with Phase("harness"):
+        phase_harness()
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

@@ -47,18 +47,32 @@ def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
     """Reverse diffusion with DDIM (the reference's default sampler; DDPM
     is not ported yet): all samples x agents in one batch.
 
-    net_apply(x_t (bs, horizon, point_dim), beta (bs,), ctx (bs, F)) ->
-    eps_hat, with bs = n_samples * B and ``ctx`` the context tiled sample
-    major. ``x_T`` (bs, horizon, point_dim) replaces the drawn start noise
-    (tests inject the reference's); otherwise it is drawn with
-    ``generator``. Returns (n_samples, B, horizon, point_dim).
+    net_apply(x_t (*E, bs, horizon, point_dim), beta (*E, bs), ctx
+    (*E, bs, F)) -> eps_hat, with context (*E, B, F) for B agents in each
+    of the leading episode axes E (none for one scene), bs = n_samples * B
+    and ``ctx`` the context tiled sample major. ``x_T`` (*E, bs, horizon,
+    point_dim) replaces the drawn start noise (tests inject the
+    reference's); otherwise it is drawn with ``generator``, or for one
+    episode axis with a sequence of generators, one per episode, each
+    drawing what it would draw for its episode alone. Returns (*E,
+    n_samples, B, horizon, point_dim).
     """
-    B = context.shape[0]
+    *lead, B, _ = context.shape
     bs = n_samples * B
-    ctx = context.repeat(n_samples, 1)
+    ctx = context.repeat(*(1,) * len(lead), n_samples, 1)
     if x_T is None:
-        x_T = torch.randn((bs, horizon, point_dim), generator=generator,
-                          device=context.device)
+        shape = (bs, horizon, point_dim)
+        if lead:
+            if (len(lead) != 1 or not isinstance(generator, (list, tuple))
+                    or len(generator) != lead[0]):
+                raise ValueError(f"sample: episode axes {tuple(lead)} need "
+                                 "one axis and one generator per episode")
+            x_T = torch.stack([torch.randn(shape, generator=g,
+                                           device=context.device)
+                               for g in generator])
+        else:
+            x_T = torch.randn(shape, generator=generator,
+                              device=context.device)
     x_t = x_T.to(context.dtype)
 
     # per-step coefficients, elementwise as the reference computes them
@@ -66,8 +80,8 @@ def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
     sqrt_1mab = torch.sqrt(1 - sched.alpha_bars)
     for t in range(sched.num_steps, 0, -stride):
         t_next = max(t - stride, 0)
-        beta = sched.betas[t].expand(bs)
+        beta = sched.betas[t].expand(*lead, bs)
         e_theta = net_apply(x_t, beta, ctx)
         x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
         x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
-    return x_t.reshape(n_samples, B, horizon, point_dim)
+    return x_t.reshape(*lead, n_samples, B, horizon, point_dim)

@@ -21,32 +21,35 @@ from sicnav_tpu_torch.ops.kde_cuda import kde_loglik_fused
 def most_likely_samples(forecasts, num_ret_samples: int, joint: bool = True):
     """Rank forecast samples by KDE likelihood and return the top k.
 
-    forecasts: (S, H, T, 2) samples x humans x horizon x xy. Returns
-    (top_forecasts (H, k, T, 2), log_weights (H, k)), the top k in
-    ascending likelihood as the reference returns them.
+    forecasts: (*B, S, H, T, 2) samples x humans x horizon x xy, for
+    leading episode axes B (none for one episode). Returns (top_forecasts
+    (*B, H, k, T, 2), log_weights (*B, H, k)), the top k in ascending
+    likelihood as the reference returns them. The B episodes' groups go to
+    the kernel in one call.
     """
-    S, H, T, _ = forecasts.shape
+    *lead, S, H, T, _ = forecasts.shape
     k = num_ret_samples
     if joint:
-        preds = forecasts.permute(2, 0, 1, 3).reshape(T, S, H * 2)
+        preds = forecasts.movedim(-2, -4).reshape(-1, S, H * 2)
         bw = torch.exp(linspace(math.log(0.01), math.log(0.1), T,
                                 device=forecasts.device))
-        ll = kde_loglik_fused(preds, bw)                       # (T, S)
-        ll = ll - torch.logsumexp(ll, dim=1, keepdim=True)
-        lik = ll.sum(dim=0)                                    # (S,)
-        top = torch.argsort(lik, stable=True)[-k:]
-        top_fc = forecasts[top].permute(1, 0, 2, 3)            # (H, k, T, 2)
-        lw = lik[top]
-        lw = lw - torch.logsumexp(lw, dim=0)
-        return top_fc, lw[None, :].expand(H, k)
-    preds = forecasts.permute(1, 2, 0, 3).reshape(H * T, S, 2)
-    ll = kde_loglik_fused(preds, 0.05)                         # (H*T, S)
-    ll = ll - torch.logsumexp(ll, dim=1, keepdim=True)
-    lik = ll.reshape(H, T, S).sum(dim=1)                       # (H, S)
-    top = torch.argsort(lik, dim=-1, stable=True)[:, -k:]      # (H, k)
-    fc_swap = forecasts.permute(1, 0, 2, 3)                    # (H, S, T, 2)
-    top_fc = torch.gather(fc_swap, 1,
-                          top[:, :, None, None].expand(H, k, T, 2))
-    lw = torch.gather(lik, 1, top)
-    lw = lw - torch.logsumexp(lw, dim=1, keepdim=True)
+        ll = kde_loglik_fused(preds, bw.expand(*lead, T).reshape(-1))
+        ll = ll.reshape(*lead, T, S)
+        ll = ll - torch.logsumexp(ll, dim=-1, keepdim=True)
+        lik = ll.sum(dim=-2)                                   # (*B, S)
+        top = torch.argsort(lik, dim=-1, stable=True)[..., -k:]
+        top_fc = torch.take_along_dim(
+            forecasts, top[..., None, None, None], dim=-4)     # (*B, k, H, T, 2)
+        lw = torch.take_along_dim(lik, top, dim=-1)
+        lw = lw - torch.logsumexp(lw, dim=-1, keepdim=True)
+        return top_fc.movedim(-4, -3), lw[..., None, :].expand(*lead, H, k)
+    preds = forecasts.movedim(-4, -2).reshape(-1, S, 2)
+    ll = kde_loglik_fused(preds, 0.05)                         # (B*H*T, S)
+    ll = ll - torch.logsumexp(ll, dim=-1, keepdim=True)
+    lik = ll.reshape(*lead, H, T, S).sum(dim=-2)               # (*B, H, S)
+    top = torch.argsort(lik, dim=-1, stable=True)[..., -k:]    # (*B, H, k)
+    fc_swap = forecasts.movedim(-4, -3)                        # (*B, H, S, T, 2)
+    top_fc = torch.take_along_dim(fc_swap, top[..., None, None], dim=-3)
+    lw = torch.take_along_dim(lik, top, dim=-1)
+    lw = lw - torch.logsumexp(lw, dim=-1, keepdim=True)
     return top_fc, lw

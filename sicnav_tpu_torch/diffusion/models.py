@@ -176,17 +176,18 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(d_model, d_model)
 
     def forward(self, x, mask):
-        """x (B, N, d); mask (N, N) bool, True = attend."""
-        B, N, _ = x.shape
-        shape = (B, N, self.n_heads, self.head_dim)
+        """x (..., N, d); mask bool, True = attend, broadcastable to the
+        weights (..., heads, N, N)."""
+        *lead, N, _ = x.shape
+        shape = (*lead, N, self.n_heads, self.head_dim)
         q = self.query(x).view(shape) / math.sqrt(self.head_dim)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
-        w = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        w = torch.einsum("...qhd,...khd->...hqk", q, k)
         w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
         w = torch.softmax(w, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-        return self.out(o.reshape(B, N, -1))
+        o = torch.einsum("...hqk,...khd->...qhd", w, v)
+        return self.out(o.reshape(*lead, N, -1))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -233,16 +234,19 @@ class JointTransformerConcatLinear(nn.Module):
                              persistent=False)
 
     def forward(self, x, beta, context, scene_mask):
-        """x (S, A, T, 2); beta (S, A); context (S, A, F); scene_mask
-        (A*T, A*T) bool, True = attend. One scene per leading index."""
-        S, A, T, _ = x.shape
-        ctx = _time_context(beta, context)                  # (S, A, 1, 3+F)
+        """x (*B, S, A, T, 2); beta (*B, S, A); context (*B, S, A, F);
+        scene_mask (*B, A*T, A*T) bool, True = attend. One scene per
+        leading index; the B axes (episodes) each have their own mask."""
+        *lead, A, T, _ = x.shape
+        ctx = _time_context(beta, context)                  # (..., A, 1, 3+F)
         h = self.concat1(ctx, x)
         h = h + self.pe[:T]
-        h = h.reshape(S, A * T, -1)
+        h = h.reshape(*lead, A * T, -1)
+        # the mask broadcasts over the samples and the heads
+        mask = scene_mask[..., None, None, :, :]
         for layer in self.tf:
-            h = layer(h, scene_mask)
-        h = h.reshape(S, A, T, -1)
+            h = layer(h, mask)
+        h = h.reshape(*lead, A, T, -1)
         h = self.concat3(ctx, h)
         h = self.concat4(ctx, h)
         return self.linear(ctx, h)

@@ -5,6 +5,12 @@
 clamping, collision / reward / termination semantics and integration — as
 one function of tensors. ``reset_host`` reproduces the seeded evaluation
 protocol (case index == RNG seed) on the chosen device.
+
+A state may carry leading episode axes (``reset_batch``): every function
+here indexes from the trailing end, so B episodes step as one call, and
+their B x H humans go through the ORCA LP as one batch. The reference
+``vmap``s one episode's step instead; the port's LP reads one flag on the
+host per call, which ``torch.func.vmap`` cannot trace.
 """
 
 from __future__ import annotations
@@ -40,7 +46,10 @@ def tree_map(fn, *trees):
 
 def intermediate_goals(pos, final_goal, door: DoorParams):
     """When the path to the final goal crosses the hallway door band, aim
-    for the door middle until within door_width/2 of it."""
+    for the door middle until within door_width/2 of it. ``pos`` and
+    ``final_goal`` are (*B, A, 2) for A agents, ``door`` has leading axes
+    B."""
+    door = DoorParams(*[x[..., None] for x in door])
     ys_min = torch.minimum(pos[..., 1], final_goal[..., 1])
     ys_max = torch.maximum(pos[..., 1], final_goal[..., 1])
     crosses = (ys_min < door.y_mid_min) & (ys_max > door.y_mid_max)
@@ -61,9 +70,9 @@ def _robot_next(state: SimState, action, cfg: EnvConfig):
     """Robot next position under the (already clamped) action."""
     if cfg.robot_kinematics == "holonomic":
         return state.r_pos + action * cfg.dt
-    heading = state.r_theta + action[1]
-    return state.r_pos + action[0] * cfg.dt * torch.stack(
-        [torch.cos(heading), torch.sin(heading)])
+    heading = state.r_theta + action[..., 1]
+    return state.r_pos + action[..., 0, None] * cfg.dt * torch.stack(
+        [torch.cos(heading), torch.sin(heading)], dim=-1)
 
 
 def _term(enabled, detailed):
@@ -72,10 +81,11 @@ def _term(enabled, detailed):
 
 def step(state: SimState, action: torch.Tensor, cfg: EnvConfig
          ) -> Tuple[SimState, torch.Tensor, StepInfo]:
-    """One environment step. ``action`` is (2,): (vx, vy) for a holonomic
-    robot or (v, r) for a unicycle robot. Returns (next_state, reward, info).
+    """One environment step. ``action`` is (..., 2): (vx, vy) for a
+    holonomic robot or (v, r) for a unicycle robot, with the state's leading
+    episode axes. Returns (next_state, reward, info).
     """
-    h_act = human_actions(state, cfg)                      # (H, 2)
+    h_act = human_actions(state, cfg)                      # (..., H, 2)
     return step_with_human_actions(state, action, h_act, cfg)
 
 
@@ -86,8 +96,9 @@ def step_with_human_actions(state: SimState, action: torch.Tensor,
     rc = cfg.rewards
     dt = cfg.dt
     H = cfg.max_humans
-    zero = torch.zeros((), dtype=torch.float32, device=action.device)
-    true = torch.ones((), dtype=torch.bool, device=action.device)
+    lead = state.t.shape
+    zero = torch.zeros(lead, dtype=torch.float32, device=action.device)
+    true = torch.ones(lead, dtype=torch.bool, device=action.device)
 
     # --- 2. clamp every human action against the walls --------------------
     h_act, _ = clamp_holonomic_action(state.h_pos, h_act, state.h_radius, dt,
@@ -100,33 +111,34 @@ def step_with_human_actions(state: SimState, action: torch.Tensor,
             state.wall_mask)
     else:
         v_c, stat_collision = clamp_unicycle_action(
-            state.r_pos, state.r_theta, action[0], action[1], state.r_radius,
-            dt, state.walls, state.wall_mask)
-        r_act = torch.stack([v_c, action[1]])
+            state.r_pos, state.r_theta, action[..., 0], action[..., 1],
+            state.r_radius, dt, state.walls, state.wall_mask)
+        r_act = torch.stack([v_c, action[..., 1]], dim=-1)
 
     # --- 4. robot-human collision + dmin (sequential-break parity) --------
     r_next = _robot_next(state, r_act, cfg)
     h_next = state.h_pos + h_act * dt
-    dists = norm2(r_next[None, :] - h_next)                # (H,)
-    r_sum = state.r_radius + state.h_radius
+    dists = norm2(r_next[..., None, :] - h_next)           # (..., H)
+    r_sum = state.r_radius[..., None] + state.h_radius
     colliding = state.h_mask & (dists < r_sum)
-    collision = colliding.any()
-    first_coll = torch.argmax(colliding.to(torch.uint8))    # first colliding slot
+    collision = colliding.any(dim=-1)
+    # first colliding slot
+    first_coll = torch.argmax(colliding.to(torch.uint8), dim=-1)
     slots = torch.arange(H, device=action.device)
-    before_first = slots < torch.where(collision, first_coll, H)
+    before_first = slots < torch.where(collision, first_coll, H)[..., None]
     dmin = torch.where(state.h_mask & before_first, dists,
-                       torch.full_like(dists, math.inf)).amin()
+                       torch.full_like(dists, math.inf)).amin(dim=-1)
 
     # --- 5. events --------------------------------------------------------
     if cfg.robot_kinematics == "holonomic":
         speed = norm2(r_act)
         frozen = speed * dt < 0.01
-        curr_ang = torch.atan2(r_act[1], r_act[0])
+        curr_ang = torch.atan2(r_act[..., 1], r_act[..., 0])
         curr_lin = speed
     else:
-        frozen = (r_act[0] * dt).abs() < 0.01
-        curr_ang = r_act[1]
-        curr_lin = r_act[0]
+        frozen = (r_act[..., 0] * dt).abs() < 0.01
+        curr_ang = r_act[..., 1]
+        curr_lin = r_act[..., 0]
 
     reached_goal = norm2(r_next - state.r_goal) < state.r_radius
     curr_dist_to_goal = norm2(state.r_goal - r_next)
@@ -207,23 +219,23 @@ def step_with_human_actions(state: SimState, action: torch.Tensor,
 
     # --- 7. integrate -----------------------------------------------------
     if cfg.robot_kinematics == "holonomic":
-        new_theta = torch.atan2(r_act[1], r_act[0])
+        new_theta = torch.atan2(r_act[..., 1], r_act[..., 0])
         new_vel = r_act
         new_omega = zero
     else:
-        new_theta = wrap_angle(state.r_theta + r_act[1])
-        new_vel = r_act[0] * torch.stack([torch.cos(new_theta),
-                                          torch.sin(new_theta)])
-        new_omega = r_act[1] / dt
+        new_theta = wrap_angle(state.r_theta + r_act[..., 1])
+        new_vel = r_act[..., 0, None] * torch.stack(
+            [torch.cos(new_theta), torch.sin(new_theta)], dim=-1)
+        new_omega = r_act[..., 1] / dt
 
-    h_theta = torch.atan2(h_act[:, 1], h_act[:, 0])
+    h_theta = torch.atan2(h_act[..., 1], h_act[..., 0])
     new_h_goal = intermediate_goals(h_next, state.h_final_goal, state.door)
 
     # human arrival times (first arrival only)
     h_arrived = norm2(h_next - new_h_goal) < state.h_radius
     new_human_times = torch.where(
         (state.human_times == 0.0) & h_arrived & state.h_mask,
-        state.t + dt, state.human_times)
+        (state.t + dt)[..., None], state.human_times)
 
     track_progress = rc.progress_factor is not None or det
     new_state = state._replace(
@@ -240,11 +252,18 @@ def step_with_human_actions(state: SimState, action: torch.Tensor,
     return new_state, reward, info
 
 
+def _lead_where(cond, a, b):
+    """``torch.where`` with ``cond`` on the leading (episode) axes of
+    ``a`` and ``b``."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())),
+                       a, b)
+
+
 def step_masked(state: SimState, action, cfg: EnvConfig):
     """Step that freezes terminated environments."""
     new_state, reward, info = step(state, action, cfg)
     keep = state.done
-    frozen_state = tree_map(lambda old, new: torch.where(keep, old, new),
+    frozen_state = tree_map(lambda old, new: _lead_where(keep, old, new),
                             state, new_state)
     reward = torch.where(keep, 0.0, reward)
     info = tree_map(lambda x: torch.where(keep, torch.zeros_like(x), x), info)
@@ -316,3 +335,15 @@ def reset_host(cfg: EnvConfig, case: int, phase: str = "test",
     h_arrays = scenarios.generate_host(cfg, case, phase, walls, wall_mask)
     state = _base_state(cfg, walls, wall_mask, door, h_arrays, device)
     return _dummy_prestep(state, cfg)
+
+
+def stack(trees):
+    """NamedTuples of tensors stacked on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def reset_batch(cfg: EnvConfig, cases, phase: str = "test",
+                device=None) -> SimState:
+    """``reset_host`` of every case in ``cases``, stacked on a leading
+    episode axis (case == seed, as for one episode)."""
+    return stack([reset_host(cfg, c, phase, device) for c in cases])

@@ -84,12 +84,18 @@ def clamp_action_positions(cur, fut, radius, walls, wall_mask):
     """Clamp the motions ``cur -> fut`` of agents of ``radius`` against all
     walls: the candidate with the smallest displacement.
 
-    Shapes: cur, fut (..., 2); radius (...); walls (W, 2, 2); wall_mask
-    (W,). Returns (final (..., 2), clamped (...)).
+    Shapes: cur, fut (*B, *A, 2); radius (*B, *A); walls (*B, W, 2, 2);
+    wall_mask (*B, W), with B the leading episode axes (none for one
+    episode) and A the agent axes. Returns (final (*B, *A, 2), clamped
+    (*B, *A)).
     """
+    lead = walls.shape[:-3]
+    n_agent = cur.dim() - 1 - len(lead)
+    walls = walls.reshape(*lead, *(1,) * n_agent, *walls.shape[-3:])
+    wall_mask = wall_mask.reshape(*lead, *(1,) * n_agent, wall_mask.shape[-1])
     cur_, fut_ = cur[..., None, :], fut[..., None, :]
     finals, collides = _final_position_vs_wall(
-        cur_, fut_, radius[..., None], walls[:, 0], walls[:, 1])
+        cur_, fut_, radius[..., None], walls[..., 0, :], walls[..., 1, :])
     active = collides & wall_mask
     disp = norm2(finals - cur_)
     disp = torch.where(active, disp, torch.full_like(disp, math.inf))

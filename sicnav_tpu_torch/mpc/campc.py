@@ -12,8 +12,10 @@ The reference runs a step as one jitted program and takes its ``lax.cond``
 branches on the device. Here the two branches that only save work (the
 guess's exact-rollout margin, needed only when the guess is adopted, and
 the evasive-brake fan) read their condition on the host, once per step;
-the values are the reference's. The multi-start solves run one after
-another where the reference ``vmap``s them.
+the values are the reference's. On an OCP built ``vmapped`` (a controller
+under ``torch.func.vmap`` over episodes) both branches are computed and
+selected, as ``lax.cond`` does under ``jax.vmap``. The multi-start solves
+run one after another where the reference ``vmap``s them.
 """
 
 from __future__ import annotations
@@ -471,6 +473,10 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
 
     # failure-triggered effort escalation: read once per step
     n_dyn = None
+    if cfg.adaptive_effort > 0 and ocp.vmapped:
+        raise NotImplementedError(
+            "MPCConfig.adaptive_effort cannot be batched: the port reads "
+            "each step's IPM iteration budget on the host")
     if cfg.adaptive_effort > 0:
         n_dyn = settings.n_iter + (cfg.adaptive_effort if bool(
             carry.has_prev & ~carry.prev_ok) else 0)
@@ -531,10 +537,10 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
     # cfg.brake_on_unreal_guess also when the adopted guess's own exact
     # rollout predicts a collision (its margin is needed only then)
     guess_ok = torch.isfinite(z_guess).all()
-    if cfg.brake_on_unreal_guess and bool(use_guess):
+    if cfg.brake_on_unreal_guess and (ocp.vmapped or bool(use_guess)):
         margin_g = exact_plan_margin(ocp, params, ocp.unpack(z_guess)[0],
                                      cfg.brake_horizon)
-        guess_ok = guess_ok & (margin_g > cfg.brake_margin)
+        guess_ok = guess_ok & (~use_guess | (margin_g > cfg.brake_margin))
     use_rescue = torch.zeros_like(guess_ok)
     if cfg.rescue_best_margin and cfg.multi_start > 1:
         use_rescue = (use_guess & ~guess_ok & torch.isfinite(z_mbest).all()
@@ -542,7 +548,10 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
         z_used = torch.where(use_rescue, z_mbest, z_used)
     u_rob = ocp.unpack(z_used)[0]
     exec_plan = guess_ok | ~use_guess | use_rescue
-    if cfg.evasive_brake and not bool(exec_plan):
+    if cfg.evasive_brake and ocp.vmapped:
+        action_u = torch.where(exec_plan, u_rob[0],
+                               _evasive_brake_action(ocp, params))
+    elif cfg.evasive_brake and not bool(exec_plan):
         action_u = _evasive_brake_action(ocp, params)
     else:
         v_brake = torch.clamp(ocp.rob_v_prev(params.x0_rob) +

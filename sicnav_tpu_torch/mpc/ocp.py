@@ -240,11 +240,19 @@ def _lse(x):
 
 class OCP:
     """Cost / equality / inequality residual functions over z, on one
-    device (CUDA unless the caller names another)."""
+    device (CUDA unless the caller names another).
 
-    def __init__(self, cfg: MPCConfig, device=None):
+    ``vmapped``: the controller built on this OCP runs under
+    ``torch.func.vmap`` over episodes (``sicnav_diffusion.make_policy(
+    batch=True)``), so nothing on its path may read a value on the host.
+    Where the one-episode controller reads a flag to skip work that would
+    not change the result, it computes that work and selects instead, as
+    the reference's ``lax.cond`` does under ``jax.vmap``."""
+
+    def __init__(self, cfg: MPCConfig, device=None, vmapped: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.vmapped = vmapped
         self.jitter = _build_jitter(cfg, self.device)
         H = cfg.num_hums
         self._eye_h = torch.eye(H, dtype=torch.bool, device=self.device)

@@ -11,17 +11,26 @@ door-yield on, wall margin 0.10.
 
 A ``torch.Generator`` in the carry draws the forecaster's start noise, in
 place of the reference's split PRNG key.
+
+The batched policy (``make_policy(batch=True)``) advances B episodes with
+one control step: the forecaster takes the B scenes as one batch (each
+episode's noise from its own generator, its KDE ranking one kernel call of
+B x horizon groups), then ``torch.func.vmap`` maps the MPC half
+(``act_on_forecasts``) over the episodes, on an OCP built ``vmapped``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.func import vmap
 
 from sicnav_tpu_torch.diffusion import forecaster as FC
 from sicnav_tpu_torch.diffusion.mid import JMIDModel
+from sicnav_tpu_torch.env.crowd_sim import stack
 from sicnav_tpu_torch.env.types import EnvConfig, SimState
 from sicnav_tpu_torch.mpc import campc as C
 from sicnav_tpu_torch.mpc import ipm
@@ -29,6 +38,8 @@ from sicnav_tpu_torch.mpc.ocp import MPCConfig, OCP
 
 
 class SICNavDiffCarry(NamedTuple):
+    """One episode's carry; for a batch the tensors carry a leading episode
+    axis and ``generator`` is a list of generators, one per episode."""
     mpc: C.CAMPCCarry
     forecaster: FC.ForecasterState
     generator: torch.Generator
@@ -41,6 +52,16 @@ def init_carry(ocp: OCP, max_humans: int, fcfg: FC.ForecasterConfig,
         mpc=C.init_carry(ocp),
         forecaster=FC.init_state(max_humans, fcfg, device=ocp.device),
         generator=gen)
+
+
+def init_batch_carry(ocp: OCP, max_humans: int, fcfg: FC.ForecasterConfig,
+                     seeds) -> SICNavDiffCarry:
+    """The carries of ``len(seeds)`` episodes, stacked on a leading axis;
+    episode i's generator is seeded with ``seeds[i]``."""
+    carries = [init_carry(ocp, max_humans, fcfg, s) for s in seeds]
+    return SICNavDiffCarry(mpc=stack([c.mpc for c in carries]),
+                           forecaster=stack([c.forecaster for c in carries]),
+                           generator=[c.generator for c in carries])
 
 
 def weighted_goals(forecasts, log_weights, step: int = 1):
@@ -101,14 +122,82 @@ def sicnav_diffusion_action(ocp: OCP, model: JMIDModel, state: SimState,
     return (out[0], new_carry) + tuple(out[2:])
 
 
+@contextlib.contextmanager
+def _batched_lu_threads(device):
+    """On the CPU, one intra-op thread while the block runs. torch's CPU
+    LU of a batch of matrices over ~128 rows (LAPACK getrf in a parallel
+    loop over the batch) prints DLASWP parameter errors and never returns
+    when it runs on more than one thread (torch 2.13); the vmapped IPM
+    factors B KKT matrices of ~300 rows at once. CUDA is untouched."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def act_on_forecasts_batch(ocp: OCP, states: SimState,
+                           mpc_carry: C.CAMPCCarry, forecasts, log_w,
+                           env_cfg: EnvConfig,
+                           settings: ipm.IPMSettings = ipm.IPMSettings(),
+                           aux: bool = False):
+    """``act_on_forecasts`` of B episodes, ``torch.func.vmap``ped over the
+    leading episode axis of every argument: one solve of the B NLPs, each
+    launch carrying all of them. ``ocp`` must be built ``vmapped``."""
+    if not ocp.vmapped:
+        raise ValueError("act_on_forecasts_batch needs an OCP built with "
+                         "vmapped=True")
+
+    def one(state, carry, fc, lw):
+        return act_on_forecasts(ocp, state, carry, fc, lw, env_cfg, settings,
+                                aux=aux)
+
+    with _batched_lu_threads(ocp.device):
+        return vmap(one)(states, mpc_carry, forecasts, log_w)
+
+
+def sicnav_diffusion_action_batch(ocp: OCP, model: JMIDModel,
+                                  states: SimState, carry: SICNavDiffCarry,
+                                  env_cfg: EnvConfig,
+                                  fcfg: FC.ForecasterConfig,
+                                  settings: ipm.IPMSettings = ipm.IPMSettings(),
+                                  aux: bool = False):
+    """One control step of B episodes (``states`` and ``carry`` from
+    ``init_batch_carry``): the batched forecaster, then the vmapped MPC
+    half. Returns (actions (B, 2), carry') (+ ``CAMPCAux`` of (B,)
+    tensors with ``aux=True``)."""
+    fstate = FC.update_state_hists(carry.forecaster, states, fcfg)
+    forecasts, log_w = FC.predict_ret_best(model, fstate, states, fcfg,
+                                           generator=carry.generator)
+    out = act_on_forecasts_batch(ocp, states, carry.mpc, forecasts, log_w,
+                                 env_cfg, settings, aux=aux)
+    new_carry = SICNavDiffCarry(mpc=out[1], forecaster=fstate,
+                                generator=carry.generator)
+    return (out[0], new_carry) + tuple(out[2:])
+
+
 def make_policy(env_cfg: EnvConfig, model: JMIDModel, mpc_cfg=None,
                 fcfg: FC.ForecasterConfig = None,
                 settings: ipm.IPMSettings = None,
                 goal_dynamics: bool = False, close_to_preds: bool = True,
                 ral: bool = True, door_yield: bool = True,
-                mpc_overrides: dict = None, device=None):
+                mpc_overrides: dict = None, device=None,
+                batch: bool = False, seed_per_case: bool = False,
+                aux: bool = False):
     """Build (ocp, policy_fn): policy_fn(state, carry) -> (action, carry),
     on ``device`` (CUDA unless named; the model must live there too).
+
+    ``batch=True`` builds the batched policy instead: (ocp, init_carry_fn,
+    step_fn) for ``rollout.batch_rollout_stateful`` and
+    ``harness.evaluate_policy``. ``init_carry_fn(cases)`` gives the cases'
+    stacked carries, every generator seeded 0 as the reference's audit
+    does, or seeded with its case with ``seed_per_case``;
+    ``step_fn(states, carries) -> (actions, carries)`` (+ aux with
+    ``aux``) is one batched control step.
 
     The reference's defaults: static weighted-sample goals at t+1
     (``goal_dynamics`` off), the close-to-preds constraint, the RA-L robot
@@ -135,7 +224,19 @@ def make_policy(env_cfg: EnvConfig, model: JMIDModel, mpc_cfg=None,
         mpc_cfg = dataclasses.replace(mpc_cfg, **mpc_overrides)
     if settings is None:
         settings = ipm.realtime_settings(mpc_cfg.num_hums, with_mid=True)
-    ocp = OCP(mpc_cfg, device=device)
+    ocp = OCP(mpc_cfg, device=device, vmapped=batch)
+
+    if batch:
+        def init_carry_fn(cases):
+            seeds = list(cases) if seed_per_case else [0] * len(cases)
+            return init_batch_carry(ocp, env_cfg.max_humans, fcfg, seeds)
+
+        def step_fn(states, carries):
+            return sicnav_diffusion_action_batch(ocp, model, states, carries,
+                                                 env_cfg, fcfg, settings,
+                                                 aux=aux)
+
+        return ocp, init_carry_fn, step_fn
 
     def policy_fn(state, carry):
         return sicnav_diffusion_action(ocp, model, state, carry, env_cfg,

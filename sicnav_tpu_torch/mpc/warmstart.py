@@ -56,7 +56,8 @@ def solve_human_step(ocp: OCP, params: MPCParams, xr, xh,
 
     pts, dirs = _lp_lines(norms, scalars)
     valid = torch.ones((H, L), dtype=torch.bool, device=pts.device)
-    v = solve_orca_lp(pts, dirs, valid, ~valid, v_max, v_pref)
+    v = solve_orca_lp(pts, dirs, valid, ~valid, v_max, v_pref,
+                      host_read=not ocp.vmapped)
 
     g_lines = scalars - torch.sum(norms * v[:, None, :], -1)   # >0 violated
     ksi_raw0 = torch.clamp(torch.amax(g_lines, dim=-1), min=0.0) / sk
@@ -141,7 +142,8 @@ def robot_warmstart_velocity(ocp: OCP, params: MPCParams, xr, xh):
     valid = torch.ones(pts.shape[:1], dtype=torch.bool, device=pts.device)
     return solve_orca_lp(pts[None], dirs[None], valid[None], ~valid[None],
                          torch.full((1,), cfg.max_speed, dtype=pts.dtype,
-                                    device=pts.device), v_pref[None])[0]
+                                    device=pts.device), v_pref[None],
+                         host_read=not ocp.vmapped)[0]
 
 
 def _vel_to_unicycle(ocp: OCP, xr, v_des):

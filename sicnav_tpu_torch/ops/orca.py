@@ -403,7 +403,8 @@ def _lp3(points, dirs, valid, is_obst, begin_line, radius, result):
     return result
 
 
-def solve_orca_lp(points, dirs, valid, is_obst, radius, pref_vel):
+def solve_orca_lp(points, dirs, valid, is_obst, radius, pref_vel,
+                  host_read: bool = True):
     """Full RVO2 velocity selection: LP2 with the LP3 fallback.
 
     Shapes: points, dirs (B, L, 2) with obstacle slots first; valid, is_obst
@@ -412,10 +413,12 @@ def solve_orca_lp(points, dirs, valid, is_obst, radius, pref_vel):
     LP3 runs only when some agent's LP2 failed. The reference computes it
     for every agent and selects; skipping it when no agent needs it costs
     one host read of the fail flags and saves a few hundred launches.
+    ``host_read=False`` computes it always, as the reference does: under
+    ``torch.func.vmap`` the read would raise.
     """
     result, fail = _lp2(points, dirs, valid, radius, pref_vel, False)
     needs3 = fail >= 0
-    if not bool(needs3.any()):
+    if host_read and not bool(needs3.any()):
         return result
     L = points.shape[-2]
     begin = torch.where(needs3, fail, L)
@@ -493,9 +496,10 @@ def orca_velocity(pos, vel, rad, pref_vel, max_speed, npos, nvel, nrad, nmask,
 
 
 def walls_to_edges(walls, wmask):
-    """(W, 2, 2) wall segments -> (2W, 2) directed edges, both orientations.
-    Returns (ep1, ep2, emask)."""
-    p1 = torch.cat([walls[:, 0], walls[:, 1]], dim=0)
-    p2 = torch.cat([walls[:, 1], walls[:, 0]], dim=0)
-    emask = torch.cat([wmask, wmask], dim=0)
+    """(..., W, 2, 2) wall segments -> (..., 2W, 2) directed edges, both
+    orientations. Returns (ep1, ep2, emask)."""
+    w0, w1 = walls[..., 0, :], walls[..., 1, :]
+    p1 = torch.cat([w0, w1], dim=-2)
+    p2 = torch.cat([w1, w0], dim=-2)
+    emask = torch.cat([wmask, wmask], dim=-1)
     return p1, p2, emask

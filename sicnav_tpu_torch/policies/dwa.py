@@ -12,6 +12,7 @@ import dataclasses
 import math
 
 import torch
+from torch.func import vmap
 
 from sicnav_tpu_torch.env.types import EnvConfig, SimState
 from sicnav_tpu_torch.ops.geometry import linspace, norm2, point_to_segment_dist
@@ -148,3 +149,11 @@ def dwa_policy(state: SimState, env_cfg: EnvConfig, cfg: DWAConfig = None):
     u = dwa_action(x, state.r_goal, state.h_pos, state.h_radius, state.h_mask,
                    state.walls, state.wall_mask, cfg)
     return torch.stack([u[0], u[1] * env_cfg.dt])
+
+
+def dwa_policy_batch(states: SimState, env_cfg: EnvConfig,
+                     cfg: DWAConfig = None):
+    """``dwa_policy`` for states with a leading episode axis: (B, 2)
+    actions, one vmapped call (the batched policy of
+    ``rollout.batch_rollout`` and the harness)."""
+    return vmap(lambda s: dwa_policy(s, env_cfg, cfg))(states)

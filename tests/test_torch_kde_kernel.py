@@ -26,6 +26,9 @@ MAIN_PATH_SHAPES = [(8, 48, 16), (64, 48, 2)]
 # the definitive protocol's rankings (3 humans): joint (8, 48, 6), iMID
 # (24, 48, 2)
 PROTOCOL_SHAPES = [(8, 48, 6), (24, 48, 2)]
+# the protocol's joint ranking of ten episodes in one call (the batched
+# control step): 10 x 8 groups
+BATCH_SHAPES = [(80, 48, 6)]
 # S > 64 and not a multiple of 32, odd D; S > 128 at an instantiated D; a
 # wide D in the masked instantiation; shared memory above the default 48 KB,
 # which the kernel takes only after opting in
@@ -100,7 +103,7 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,S,D", SHAPES + MAIN_PATH_SHAPES[1:] +
-                         PROTOCOL_SHAPES + KERNEL_SHAPES)
+                         PROTOCOL_SHAPES + BATCH_SHAPES + KERNEL_SHAPES)
 def test_cuda_kernel_matches_plain(G, S, D):
     _cuda_or_skip()
     y, z = _inputs(G, S, D)
@@ -148,3 +151,27 @@ def test_cuda_most_likely_samples_matches_cpu():
     top, lw = KDE.most_likely_samples(fc.cuda(), 10)
     torch.testing.assert_close(top.cpu(), top_cpu, rtol=0, atol=0)
     torch.testing.assert_close(lw.cpu(), lw_cpu, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_batched_ranking_is_one_launch():
+    """Ten episodes' joint rankings go to the kernel as one call of 10 x 8
+    groups, and each episode's top 10 is the one it gets alone. The
+    episodes are ``test_cuda_most_likely_samples_matches_cpu``'s forecasts
+    with their samples in ten different orders: other seeds of
+    ``_forecasts`` give groups whose scale_cov is singular to float32 (an
+    eigenvalue ratio below 1e-7, or indefinite even in float64), where the
+    Cholesky factor, and so every weight, is NaN on the card."""
+    _cuda_or_skip()
+    base = torch.as_tensor(_forecasts(0, True))
+    rng = np.random.default_rng(1)
+    fc = torch.stack([base[rng.permutation(base.shape[0])]
+                      for _ in range(10)]).cuda()
+    before = K.kde_loglik.launches
+    top, lw = KDE.most_likely_samples(fc, 10)
+    torch.cuda.synchronize()
+    assert K.kde_loglik.launches == before + 1
+    for i in range(10):
+        top_i, lw_i = KDE.most_likely_samples(fc[i], 10)
+        torch.testing.assert_close(top[i], top_i, rtol=0, atol=0)
+        torch.testing.assert_close(lw[i], lw_i, rtol=TOL, atol=TOL)
