@@ -72,6 +72,22 @@ Phases, in order; each prints one line with its own seconds:
             batch, with a progress file under build/; the summary and the
             wall time. Gate: a second call with the same progress file
             resumes the batch without stepping and returns the same summary.
+10. train   scripts/train_jmid_torch.py's sim path at the shipped hallway
+            predictor's widths (ModelConfig(context_dim=128, tf_layer=2),
+            TrainConfig(batch_size=8, lr=1e-4)): TRAIN_SCENES device resets
+            of 5 ORCA-plus humans, the 60-step ORCA-robot rollout and the
+            examples (seconds, counts); mid.fit for TRAIN_EPOCHS epochs
+            (train-step ms median and p90, seconds, loss and val ADE per
+            epoch); one profiled step (launches, busy share, peak memory);
+            one train step on the card against the CPU with the same
+            weights, batch and noise, dropout 0 (loss TRAIN_LOSS_TOL, each
+            gradient TRAIN_GRAD_TOL of its largest entry, parameters after
+            Adam TRAIN_PARAM_TOL); eval_scene_full over every validation
+            scene, one kernel launch each, on the card and on the CPU from
+            the same noise (each metric's mean, the non-finite counts), the
+            kernel held against its plain version on the sweep's inputs;
+            the checkpoint saved, loaded into a fresh model and sampled
+            bit-equal, then served for one forecast of the protocol env.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -105,6 +121,9 @@ PROTOCOL_KDE_SHAPE = (8, 48, 6)  # the protocol's joint ranking: 3 humans
 PROTOCOL_IMID_SHAPE = (24, 48, 2)  # the protocol's iMID ranking
 BATCH = 10              # episodes per batched control step (the reference's suites)
 BATCH_KDE_SHAPE = (8 * BATCH, 48, 6)  # the batched joint ranking: B x horizon groups
+# the validation sweep's joint ranking (eval_scene_full, 20 samples), one
+# launch per scene: train_jmid's 5 humans, and 3
+SWEEP_KDE_SHAPES = [(8, 20, 10), (8, 20, 6)]
 BATCH_STEPS = 6         # batched control steps of the batch phase
 GATE_CASES = 3          # cases of the batched-vs-unbatched float64 gate
 # The batched step against the unbatched one in float64: the same NLPs in
@@ -140,6 +159,16 @@ CROSS_STEP = 2          # the control step cross-checked: the robot turning
 CROSS_ACTION_TOL = 1e-6
 CROSS_ACTION_F32_TOL = 2e-2
 FAR_KDE_R2 = 1.2e9              # |y|^2 of the main path's whitened samples
+# The train phase: train_jmid's sim data cut from 64 scenes to TRAIN_SCENES
+# and the shipped predictor's 40 epochs to TRAIN_EPOCHS.
+TRAIN_SCENES = 16
+TRAIN_EPOCHS = 2
+# One train step on the card against the CPU, same weights, batch and
+# noise, dropout 0: float32 sums in other orders through the encoder's
+# LSTMs, the denoiser and their backward passes.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4   # of each gradient tensor's largest entry
+TRAIN_PARAM_TOL = 1e-5  # after the clip and the Adam update
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -361,7 +390,8 @@ def phase_kernels(K):
     timings = {}
     for G, S, D in KDE_SHAPES + [RAGGED_KDE_SHAPE, MAIN_KDE_SHAPE,
                                  IMID_KDE_SHAPE, PROTOCOL_KDE_SHAPE,
-                                 PROTOCOL_IMID_SHAPE, BATCH_KDE_SHAPE]:
+                                 PROTOCOL_IMID_SHAPE, BATCH_KDE_SHAPE,
+                                 *SWEEP_KDE_SHAPES]:
         y, z = kde_inputs(G, S, D, gen)
         err, share = check_kde(K, y, z)
         # the check must see the pair terms: most rows get >10 % from them
@@ -385,7 +415,7 @@ def phase_kernels(K):
     # the main path is now the batched protocol loop: its ranking's shape;
     # the one-episode loop's beside it
     per_shape = {}
-    for shape in (BATCH_KDE_SHAPE, PROTOCOL_KDE_SHAPE):
+    for shape in (BATCH_KDE_SHAPE, PROTOCOL_KDE_SHAPE, *SWEEP_KDE_SHAPES):
         ms, plain_ms = timings[shape]
         bound, bound_by = kde_bound_ms(*shape)
         per_shape["x".join(map(str, shape))] = {
@@ -405,25 +435,35 @@ def check_live_kde(K, ranked):
     1e9 there, where a float32 Gram-form distance (the reference's) would
     miss the self term d_ii = 0 by hundreds; the plain version takes the
     distance in difference form, as the kernel does, and its float32 error
-    is printed beside the kernel's."""
+    is printed beside the kernel's. Groups whose log-likelihoods are not all
+    finite (a whitening singular in float32) are counted and printed; there
+    the kernel must give what the plain version gives (NaN for NaN).
+    Returns that count of groups."""
     err = plain_err = 0.0
-    shares = []
+    shares, bad = [], 0
     for preds, bw in ranked:
         y, z = K.kde_whiten(preds, bw)
         exact = K.kde_loglik_plain(y.double(), z.double())
         got = K.kde_loglik(y, z).double()
-        torch.testing.assert_close(got, exact, rtol=KDE_TOL, atol=KDE_TOL)
-        err = max(err, (got - exact).abs().max().item())
+        ok = torch.isfinite(got).all(dim=-1)
+        bad += int((~ok).sum())
+        torch.testing.assert_close(got, exact, rtol=KDE_TOL, atol=KDE_TOL,
+                                   equal_nan=True)
+        if not bool(ok.any()):
+            continue
+        err = max(err, (got[ok] - exact[ok]).abs().max().item())
         plain = K.kde_loglik_plain(y, z).double()
-        plain_err = max(plain_err, (plain - exact).abs().max().item())
-        shares.append(pair_share(z.double(), exact).flatten())
-    share = torch.cat(shares)
+        plain_err = max(plain_err, (plain[ok] - exact[ok]).abs().max().item())
+        shares.append(pair_share(z.double(), exact)[ok].flatten())
+    share = torch.cat(shares) if shares else torch.full((1,), math.nan)
     log(f"  kde_loglik on the path's {len(ranked)} inputs {tuple(y.shape)}: "
         f"max_abs_err {err:.3e} against the float64 plain version (bound "
         f"rtol=atol={KDE_TOL}); the float32 plain version's {plain_err:.3e}; "
         f"|y|^2 up to {(y * y).sum(-1).max().item():.3e} (last input); pair "
         f"share median {share.median().item():.3e}, max "
-        f"{share.max().item():.3e}")
+        f"{share.max().item():.3e}; groups with non-finite likelihoods: "
+        f"{bad}")
+    return bad
 
 
 def make_model(cfg, device):
@@ -1230,6 +1270,302 @@ def phase_harness(device="cuda", n_cases=BATCH, progress_file=None):
     return first
 
 
+def train_env():
+    """train_jmid's sim environment for the hallway predictor: the hallway
+    bottleneck, 5 ORCA-plus humans in 5 slots starting at once, a holonomic
+    robot driven by ORCA."""
+    from sicnav_tpu_torch.env.types import EnvConfig
+    return EnvConfig(scenario="hallway_bottleneck", human_policy="orca_plus",
+                     human_num=5, max_humans=5, starts_moving=0,
+                     robot_kinematics="holonomic")
+
+
+def _state_close(name, got, want, tol, relative):
+    """max |got - want| (of the largest |want| when ``relative``) over a
+    state_dict-like pair; raises above ``tol``."""
+    worst, where = 0.0, ""
+    for k, w in want.items():
+        g = got[k].detach().cpu().double()
+        w = w.detach().cpu().double()
+        e = (g - w).abs().max().item()
+        if relative:
+            e /= max(w.abs().max().item(), 1e-30)
+        if e > worst:
+            worst, where = e, k
+    assert worst <= tol, (name, where, worst)
+    return worst, where
+
+
+def phase_train_cross(model, batch, mcfg, tc):
+    """One train step on the card against the same step on the CPU: the
+    trained weights, one stacked batch, t and eps drawn once, dropout 0.
+    The attention key biases are held apart: a key bias adds one constant
+    to each query's logits, which the softmax cancels, so its gradient is
+    rounding alone on both sides and Adam steps it by up to lr on that
+    sign; it does not enter the model's function."""
+    from sicnav_tpu_torch.diffusion import mid as MID
+
+    cfg0 = dataclasses.replace(mcfg, dropout=0.0, rnn_dropout=0.0)
+    B, A = batch.agent_mask.shape
+    gen = torch.Generator().manual_seed(SEED + 3)
+    t = torch.randint(1, 101, (B, A), generator=gen)
+    eps = torch.randn((B, A, mcfg.horizon, 2), generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = MID.JMIDModel(cfg0, device=dev)
+        m.load_state_dict(model.state_dict())
+        state = MID.make_train_state(m, tc, 1, init=False)
+        loss = MID.train_step(m, state, batch.to_tensors(dev), t=t.to(dev),
+                              eps=eps.to(dev))
+        out[dev] = (loss.item(),
+                    {k: p.grad for k, p in m.named_parameters()},
+                    m.state_dict())
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = out["cuda"], out["cpu"]
+    key_bias = [k for k in g_cpu if k.endswith("attn.key.bias")]
+    scale = max(g.abs().max().item() for g in g_cpu.values())
+    kb = max(max(g_gpu[k].abs().max().item(), g_cpu[k].abs().max().item())
+             for k in key_bias)
+    rest = [k for k in g_cpu if k not in key_bias]
+    g_err, g_at = _state_close("gradients", g_gpu,
+                               {k: g_cpu[k] for k in rest}, TRAIN_GRAD_TOL,
+                               True)
+    p_err, p_at = _state_close("parameters", p_gpu,
+                               {k: p_cpu[k] for k in rest}, TRAIN_PARAM_TOL,
+                               False)
+    l_err = abs(l_gpu - l_cpu)
+    log(f"  one train step, card vs CPU (batch of {B} scenes, dropout 0): "
+        f"loss {l_gpu:.7f} vs {l_cpu:.7f}, err {l_err:.3e} (bound "
+        f"{TRAIN_LOSS_TOL}); gradients max err {g_err:.3e} of the tensor's "
+        f"largest entry ({g_at}; bound {TRAIN_GRAD_TOL}); parameters after "
+        f"Adam max err {p_err:.3e} ({p_at}; bound {TRAIN_PARAM_TOL}); key "
+        f"bias gradients up to {kb:.3e} ({kb / scale:.1e} of the largest "
+        f"gradient)")
+    assert l_err <= TRAIN_LOSS_TOL, l_err
+    assert kb <= TRAIN_GRAD_TOL * scale, (kb, scale)
+
+
+def profile_train_step(model, batch, tc):
+    """torch.profiler (device activity) over one train step of a copy of
+    the model, after one warm-up step: launches, busy share, peak memory."""
+    import copy
+    from torch.profiler import ProfilerActivity, profile
+    from sicnav_tpu_torch.diffusion import mid as MID
+
+    m = copy.deepcopy(model)
+    state = MID.make_train_state(m, tc, 1, init=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    MID.train_step(m, state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        MID.train_step(m, state, batch, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    peak = torch.cuda.max_memory_allocated()
+    events = device_events(prof)
+    busy_us = sum(d for _, d in events)
+    assert busy_us > 0, "the profiler saw no device time"
+    by_name = {}
+    for name, d in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + d)
+    log(f"  1 train step (profiled): wall {wall_us / 1e3:.2f} ms, device "
+        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
+        f"{len(events)} device launches; peak device memory "
+        f"(max_memory_allocated) {peak / 2**20:.1f} MiB")
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:8]:
+        log(f"  {t / 1e3:8.2f} ms {n:7d} x {name[:90]}")
+
+
+def _sweep(model, val, tc, device, noises):
+    """eval_scene_full on each validation scene, one scene per call, from
+    the given start noise; {metric: [value per scene]}."""
+    from sicnav_tpu_torch.diffusion import mid as MID
+    out = {}
+    for ex, x_T in zip(val, noises):
+        m = MID.eval_scene_full(model, ex.to_tensors(device),
+                                tc.eval_samples, x_T=x_T.to(device),
+                                stride=tc.eval_stride)
+        for k, v in m.items():
+            out.setdefault(k, []).append(float(v))
+    return out
+
+
+def phase_train(K, device="cuda", mcfg=None, n_scenes=TRAIN_SCENES,
+                epochs=TRAIN_EPOCHS, out_dir=None):
+    """train_jmid's sim path on the port: data, fit, the full validation
+    sweep on the kernel, the checkpoint's round trip and one served
+    forecast. ``device``, ``mcfg``, ``n_scenes``, ``epochs`` and
+    ``out_dir`` exist for the CPU rehearsal in
+    tests/test_torch_train_scripts.py; the CUDA-only checks (profile, card
+    vs CPU, the kernel's launches and its plain version) run on the card.
+    Returns the sweep's kernel launches."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_jmid_torch as TJ
+    from sicnav_tpu_torch.diffusion import data as D
+    from sicnav_tpu_torch.diffusion import forecaster as FC
+    from sicnav_tpu_torch.diffusion import kde as KDE
+    from sicnav_tpu_torch.diffusion import mid as MID
+    from sicnav_tpu_torch.diffusion.models import ModelConfig
+    from sicnav_tpu_torch.env import crowd_sim
+
+    cuda = torch.device(device).type == "cuda"
+    if mcfg is None:
+        mcfg = ModelConfig(context_dim=128, tf_layer=2)   # jmid_hallway's
+    if out_dir is None:
+        out_dir = os.path.join(ROOT, "build", "train")
+    os.makedirs(out_dir, exist_ok=True)
+    tc = MID.TrainConfig(batch_size=8, lr=1e-4, epochs=epochs, seed=SEED)
+    cfg = train_env()
+    K.kde_loglik.launches = 0
+
+    _sync(device)
+    t0 = time.perf_counter()
+    examples = TJ.generate_sim_scenes(n_scenes, cfg, SEED, device=device)
+    data_s = time.perf_counter() - t0
+    np.random.default_rng(SEED).shuffle(examples)
+    n_val = max(len(examples) // 10, 1)
+    val, train = examples[:n_val], examples[n_val:]
+    train_b, val_b = TJ.batches(train, tc.batch_size), TJ.batches(
+        val, tc.batch_size)
+    log(f"  data: {n_scenes} device resets ({cfg.scenario}, {cfg.human_num} "
+        f"humans), a 60-step ORCA-robot rollout and build_examples in "
+        f"{data_s:.2f} s: {len(train)} train examples ({len(train_b)} "
+        f"batches of {tc.batch_size}), {len(val)} validation examples "
+        f"({len(val_b)} batches)")
+
+    model = MID.JMIDModel(mcfg, device=device)
+    step_s = []
+
+    def timed(orig):
+        def fn(*args, **kwargs):
+            _sync(device)
+            t1 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            _sync(device)
+            step_s.append(time.perf_counter() - t1)
+            return out
+        return fn
+
+    ckpt = os.path.join(out_dir, "jmid_train.npz")
+    restore = _wrap(MID, "train_step", timed)
+    try:
+        _, history = MID.fit(model, train_b, val_b, tc, checkpoint_path=ckpt)
+    finally:
+        restore()
+    assert len(history) == epochs, history
+    for h in history:
+        assert math.isfinite(h["loss"]) and math.isfinite(h["val_ade"]), h
+    log(f"  fit: {len(step_s)} train steps, median "
+        f"{statistics.median(step_s) * 1e3:.2f} ms, p90 "
+        f"{pct(step_s, 0.9) * 1e3:.2f} ms; per epoch: " + "; ".join(
+            f"epoch {h['epoch']} {h['seconds'] * 1e3:.0f} ms, loss "
+            f"{h['loss']:.5f}, val ADE {h['val_ade']:.5f}" for h in history))
+
+    batch = train_b[0]
+    if cuda:
+        profile_train_step(model, batch.to_tensors(device), tc)
+        phase_train_cross(model, batch, mcfg, tc)
+
+    # the full sweep, one scene per call, the same noise on the card and
+    # on the CPU
+    gen = torch.Generator().manual_seed(tc.seed + 7)
+    noises = [torch.randn((tc.eval_samples * ex.agent_mask.shape[0],
+                           mcfg.horizon, 2), generator=gen) for ex in val]
+    ranked, ranked_cpu = [], []
+
+    def kept_kde(into):
+        def wrapper(orig):
+            def fn(preds, bandwidth):
+                into.append((preds, bandwidth))
+                return orig(preds, bandwidth)
+            return fn
+        return wrapper
+
+    restore = _wrap(KDE, "kde_loglik_fused", kept_kde(ranked))
+    try:
+        _sync(device)
+        t1 = time.perf_counter()
+        sweep = _sweep(model, val, tc, device, noises)
+        _sync(device)
+        sweep_s = time.perf_counter() - t1
+    finally:
+        restore()
+    launches = K.kde_loglik.launches
+    shapes = sorted({tuple(p.shape) for p, _ in ranked})
+    nonfinite = {k: sum(not math.isfinite(x) for x in v)
+                 for k, v in sweep.items()}
+    means = {k: statistics.fmean([x for x in v if math.isfinite(x)] or
+                                 [math.nan]) for k, v in sweep.items()}
+    log(f"  full sweep over {len(val)} validation scenes in {sweep_s:.2f} s "
+        f"({launches} kde_loglik launches on {shapes}): " + ", ".join(
+            f"{k} {v:.5f}" for k, v in means.items()))
+    cpu_text = ""
+    if cuda:
+        model_cpu = MID.JMIDModel(mcfg, device="cpu")
+        model_cpu.load_state_dict(model.state_dict())
+        restore = _wrap(KDE, "kde_loglik_fused", kept_kde(ranked_cpu))
+        try:
+            sweep_cpu = _sweep(model_cpu, val, tc, "cpu", noises)
+        finally:
+            restore()
+        nonfinite_cpu = {k: sum(not math.isfinite(x) for x in v)
+                         for k, v in sweep_cpu.items()}
+        bad_cpu = sum(int((~torch.isfinite(K.kde_loglik_fused(p, bw)).all(
+            dim=-1)).sum()) for p, bw in ranked_cpu)
+        diff = max(abs(a - b) for k in sweep for a, b in
+                   zip(sweep[k], sweep_cpu[k])
+                   if math.isfinite(a) and math.isfinite(b))
+        cpu_text = (f"; on the CPU from the same noise: {nonfinite_cpu}, "
+                    f"KDE groups with non-finite likelihoods {bad_cpu}, "
+                    f"finite metrics within {diff:.3e} of the card's")
+    log(f"  non-finite per metric on {'the card' if cuda else 'the CPU'}: "
+        f"{nonfinite}{cpu_text}")
+    if cuda:
+        assert launches == len(val), (launches, len(val))
+        assert shapes == [(8, tc.eval_samples, 2 * cfg.max_humans)], shapes
+        bad = check_live_kde(K, ranked)
+        stacked = D.stack_batches(val)
+        np.savez(os.path.join(out_dir, "sweep.npz"),
+                 noises=np.stack([x.numpy() for x in noises]),
+                 **{f"scene_{k}": v for k, v in stacked._asdict().items()},
+                 **{f"card_{k}": np.array(v) for k, v in sweep.items()},
+                 **{f"cpu_{k}": np.array(v) for k, v in sweep_cpu.items()})
+        log(f"  KDE groups with non-finite likelihoods in the sweep on the "
+            f"card: {bad}; scenes, noise, weights and both sweeps written to "
+            f"{os.path.relpath(out_dir, ROOT)}")
+
+    # the checkpoint: saved, loaded into a fresh model, sampled bit-equal
+    MID.save_checkpoint(ckpt, model.state_dict())
+    fresh = MID.JMIDModel(mcfg, device=device)
+    fresh.load_state_dict(MID.load_checkpoint(ckpt), strict=True)
+    one = val[0].to_tensors(device)
+    x_T = noises[0].to(device)
+    a = model.sample(one, tc.eval_samples, x_T=x_T)
+    b = fresh.sample(one, tc.eval_samples, x_T=x_T)
+    assert torch.equal(a, b), (a - b).abs().max()
+    # ... and served: one forecast of the protocol env
+    pcfg = protocol_env()
+    fcfg = FC.ForecasterConfig(num_samples=48, num_ret_samples=10,
+                               dt=pcfg.dt)
+    state = crowd_sim.reset_host(pcfg, 0, device=device)
+    fstate = FC.init_state(pcfg.max_humans, fcfg, device=device)
+    for _ in range(3):
+        fstate = FC.update_state_hists(fstate, state, fcfg)
+    fc, lw = FC.predict_ret_best(
+        fresh, fstate, state, fcfg,
+        generator=torch.Generator(device=device).manual_seed(SEED))
+    check_forecast(fc, lw, pcfg.max_humans, fcfg.num_ret_samples,
+                   fcfg.horizon)
+    log(f"  checkpoint {os.path.relpath(ckpt, ROOT)} "
+        f"({os.path.getsize(ckpt)} bytes): a fresh model samples bit-equal; "
+        f"served one protocol forecast {tuple(fc.shape)}, log-weights "
+        f"normalized")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1284,6 +1620,8 @@ def main():
                                      "slice": slice_launches}
     with Phase("harness"):
         phase_harness()
+    with Phase("train"):
+        entry["launches_by_path"]["train"] = phase_train(K)
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

@@ -1,4 +1,5 @@
-"""JMID parameters from the reference's Flax layout to the port's modules.
+"""JMID parameters between the reference's Flax layout and the port's
+modules, and the port's ``.npz`` weight files.
 
 ``jmid_state_dict`` takes the reference's JMID parameter tree as nested
 dicts of numpy arrays (the ``params`` collection of
@@ -6,6 +7,11 @@ dicts of numpy arrays (the ``params`` collection of
 ``"params"`` key) and returns a ``state_dict`` for
 ``sicnav_tpu_torch.diffusion.mid.JMIDModel``. It reads numpy only, so the
 tree can come from any reader of the reference's checkpoints.
+``flax_params`` is its inverse: the port's ``state_dict`` as the
+reference's ``{"params": ...}`` tree of numpy arrays, which the reference's
+``model.apply`` takes (so the reference can score weights the port
+trained, and tests can map the port's gradients onto the reference's).
+``save_jmid_npz`` / ``load_jmid_npz`` write and read the port's layout.
 
 Layouts handled:
 - ``Dense`` kernels are (in, out); ``nn.Linear`` weights are (out, in).
@@ -98,3 +104,77 @@ def load_jmid_npz(path) -> dict:
     ``scripts/convert_jmid_torch.py`` (numpy only: no JAX, Flax or Orbax)."""
     with np.load(path) as f:
         return {k: _t(f[k]) for k in f.files}
+
+
+def _np(x):
+    return x.detach().cpu().numpy().astype(np.float32)
+
+
+def _dense_tree(sd, prefix):
+    p = {"kernel": _np(sd[prefix + ".weight"]).T}
+    if prefix + ".bias" in sd:
+        p["bias"] = _np(sd[prefix + ".bias"])
+    return p
+
+
+def _lstm_tree(sd, prefix):
+    w_i = _np(sd[prefix + ".w_i.weight"]).T           # (in, 4H)
+    w_h = _np(sd[prefix + ".w_h.weight"]).T           # (H, 4H)
+    b_h = _np(sd[prefix + ".w_h.bias"])
+    cell = {}
+    for k, g in enumerate(_GATES):
+        H = w_h.shape[0]
+        cols = slice(k * H, (k + 1) * H)
+        cell["i" + g] = {"kernel": w_i[:, cols]}
+        cell["h" + g] = {"kernel": w_h[:, cols], "bias": b_h[cols]}
+    return {"Scan_MaskedLSTMCell_0": {"OptimizedLSTMCell_0": cell}}
+
+
+def _attention_tree(sd, prefix, n_heads):
+    p = {}
+    for name in ("query", "key", "value"):
+        w = _np(sd[f"{prefix}.{name}.weight"]).T          # (d, heads*hd)
+        d = w.shape[0]
+        p[name] = {"kernel": w.reshape(d, n_heads, -1),
+                   "bias": _np(sd[f"{prefix}.{name}.bias"]).reshape(
+                       n_heads, -1)}
+    w = _np(sd[prefix + ".out.weight"]).T                 # (heads*hd, d)
+    p["out"] = {"kernel": w.reshape(n_heads, -1, w.shape[-1]),
+                "bias": _np(sd[prefix + ".out.bias"])}
+    return p
+
+
+def flax_params(state_dict, n_heads: int = 4) -> dict:
+    """The port's JMID state_dict -> the reference's variables
+    ``{"params": tree}`` as nested dicts of numpy arrays. ``n_heads`` is
+    ``ModelConfig.n_heads``: the reference keeps the heads as an axis of
+    the attention kernels."""
+    sd = state_dict
+    att = {f"Dense_{i}": _dense_tree(sd, f"encoder.edge_attention.{name}")
+           for i, name in enumerate(("w1", "w2", "v"))}
+    enc = {"history_lstm": _lstm_tree(sd, "encoder.history_lstm"),
+           "edge_lstm": _lstm_tree(sd, "encoder.edge_lstm"),
+           "edge_attention": att}
+    den = {name: {part: _dense_tree(sd, f"denoiser.{name}.{part}")
+                  for part in ("layer", "hyper_gate", "hyper_bias")}
+           for name in ("concat1", "concat3", "concat4", "linear")}
+    n_layers = len({k.split(".")[2] for k in sd if k.startswith("denoiser.tf.")})
+    for i in range(n_layers):
+        pre = f"denoiser.tf.{i}"
+        den[f"tf_{i}"] = {
+            "MultiHeadDotProductAttention_0": _attention_tree(
+                sd, pre + ".attn", n_heads),
+            "LayerNorm_0": {"scale": _np(sd[pre + ".norm0.scale"]),
+                            "bias": _np(sd[pre + ".norm0.bias"])},
+            "Dense_0": _dense_tree(sd, pre + ".ff0"),
+            "Dense_1": _dense_tree(sd, pre + ".ff1"),
+            "LayerNorm_1": {"scale": _np(sd[pre + ".norm1.scale"]),
+                            "bias": _np(sd[pre + ".norm1.bias"])},
+        }
+    return {"params": {"encoder": enc, "denoiser": den}}
+
+
+def save_jmid_npz(path, state_dict):
+    """Write a JMID state_dict as one ``.npz`` of float32 arrays keyed by
+    parameter name, the file ``load_jmid_npz`` reads."""
+    np.savez(path, **{k: _np(v) for k, v in state_dict.items()})

@@ -1,5 +1,5 @@
-"""Diffusion core: variance schedule and the DDIM sampler (twin of
-``sicnav_tpu/diffusion/diffusion.py``).
+"""Diffusion core: variance schedule, the epsilon loss and the DDIM
+sampler (twin of ``sicnav_tpu/diffusion/diffusion.py``).
 
 All samples x agents are denoised as one batch; the reverse loop over t is
 a host loop. The schedule is computed in float64 with numpy and stored as
@@ -39,6 +39,43 @@ def make_schedule(num_steps: int = 100, device=None) -> VarianceSchedule:
 
     return VarianceSchedule(f32(betas), f32(alphas), f32(alpha_bars),
                             f32(sigmas_flex), f32(sigmas_inflex), num_steps)
+
+
+def diffusion_loss(net_apply: Callable, sched: VarianceSchedule, x0, context,
+                   loss_mask=None, generator=None, t=None, eps=None):
+    """Epsilon-prediction MSE of each scene.
+
+    x0 (*B, A, T, 2) raw target velocities of A agents per scene, for
+    leading scene axes B (none for one scene); context (*B, A, F);
+    loss_mask (*B, A, T), True = ignore. ``net_apply(x_t, beta, context)``
+    sees the leading axes. The diffusion step t (*B, A) of each agent and
+    the noise eps (x0's shape) are drawn with ``generator`` unless given.
+    Returns (*B): each scene's masked mean, as the reference returns for
+    one scene under ``vmap``.
+    """
+    if t is None:
+        t = torch.randint(1, sched.num_steps + 1, x0.shape[:-2],
+                          generator=generator, device=x0.device)
+    if eps is None:
+        eps = torch.randn(x0.shape, generator=generator, device=x0.device,
+                          dtype=x0.dtype)
+    alpha_bar = sched.alpha_bars[t]
+    beta = sched.betas[t]
+    c0 = torch.sqrt(alpha_bar)[..., None, None]
+    c1 = torch.sqrt(1 - alpha_bar)[..., None, None]
+    e_theta = net_apply(c0 * x0 + c1 * eps, beta, context)
+    err = (e_theta - eps) ** 2
+    if loss_mask is None:
+        return err.mean(dim=(-3, -2, -1))
+    keep = (~loss_mask)[..., None].to(err.dtype)
+    n = keep.sum(dim=(-3, -2, -1)) * err.shape[-1] / keep.shape[-1]
+    return (err * keep).sum(dim=(-3, -2, -1)) / torch.clamp(n, min=1.0)
+
+
+def nfe_count(num_steps: int = 100, stride: int = 2) -> int:
+    """Denoiser evaluations per sampling call (a closed form of the
+    static schedule)."""
+    return len(np.arange(num_steps, 0, -stride))
 
 
 def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,

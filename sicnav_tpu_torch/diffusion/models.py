@@ -11,7 +11,11 @@ Layers follow the reference's Flax definitions so that ``convert.py`` can
 load its parameters: Flax's LSTM gate order (i, f, g, o) with input kernels
 unbiased, Flax's attention (query scaled before the product, fully masked
 rows uniform rather than NaN) and Flax's LayerNorm (epsilon 1e-6, variance
-as E[x^2] - E[x]^2). Dropout is off: the port serves inference only.
+as E[x^2] - E[x]^2). Dropout sits where Flax has it (the encoder's three
+``rnn_dropout`` sites; in each transformer layer the attention weights,
+after attention, inside and after the feed-forward) and acts in
+``train()`` mode only, with its masks drawn from the ``generator`` handed
+to ``forward``, so that a seed decides a training run.
 Only the single-class encoder and the joint default denoiser are ported.
 """
 
@@ -43,6 +47,18 @@ class ModelConfig:
     diffnet: str = ""
     residual: bool = False
     num_node_types: int = 1
+
+
+def dropout(x, rate: float, generator=None, shape=None):
+    """Flax's ``Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate). The keep mask, drawn from ``generator``,
+    has ``shape`` (broadcast over x; x's own shape by default)."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape if shape is None else shape,
+                      generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class LSTMEncoder(nn.Module):
@@ -98,6 +114,7 @@ class TrajectronEncoder(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.rnn_dropout = cfg.rnn_dropout
         if cfg.num_node_types > 1:
             raise NotImplementedError(
                 "class-conditioned encoders (num_node_types > 1) are not "
@@ -107,17 +124,23 @@ class TrajectronEncoder(nn.Module):
         self.edge_lstm = LSTMEncoder(2 * cfg.state_dim, H)
         self.edge_attention = AdditiveAttention(H, H, H)
 
-    def forward(self, hist, hist_mask, neigh_hist, neigh_mask):
-        h_enc = self.history_lstm(hist, hist_mask)
+    def forward(self, hist, hist_mask, neigh_hist, neigh_mask,
+                generator=None):
+        rate = self.rnn_dropout if self.training else 0.0
+
+        def drop(x):
+            return dropout(x, rate, generator)
+
+        h_enc = drop(self.history_lstm(hist, hist_mask))
         # edge: sum-combine neighbour states over the slot axis
         combined = torch.where(neigh_mask[..., None, None], neigh_hist,
                                torch.zeros_like(neigh_hist)).sum(dim=-3)
         joint = torch.cat([combined, hist], dim=-1)
         e_enc = self.edge_lstm(joint, hist_mask)
         # dynamic-edge mask: zero influence when no neighbours at all
-        e_enc = e_enc * neigh_mask.any(dim=-1)[..., None]
+        e_enc = drop(e_enc * neigh_mask.any(dim=-1)[..., None])
         e_infl, _ = self.edge_attention(e_enc[..., None, :], h_enc)
-        return torch.cat([e_infl, h_enc], dim=-1)
+        return torch.cat([drop(e_infl), h_enc], dim=-1)
 
 
 class ConcatSquashLinear(nn.Module):
@@ -159,15 +182,18 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Flax ``MultiHeadDotProductAttention`` (self-attention, no dropout).
+    """Flax ``MultiHeadDotProductAttention`` (self-attention).
 
     A masked logit is set to the float32 minimum, as in Flax, so a row with
     every key masked (an absent agent's tokens) comes out uniform instead of
-    NaN; NaN rows would reach every token through the next layer.
+    NaN; NaN rows would reach every token through the next layer. In train
+    mode the attention weights take dropout with one mask for all heads, as
+    Flax's ``broadcast_dropout`` draws it.
     """
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.n_heads = n_heads
         self.head_dim = d_model // n_heads
         self.query = nn.Linear(d_model, d_model)
@@ -175,7 +201,7 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator=None):
         """x (..., N, d); mask bool, True = attend, broadcastable to the
         weights (..., heads, N, N)."""
         *lead, N, _ = x.shape
@@ -186,6 +212,8 @@ class MultiHeadAttention(nn.Module):
         w = torch.einsum("...qhd,...khd->...hqk", q, k)
         w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
         w = torch.softmax(w, dim=-1)
+        w = dropout(w, self.dropout_rate if self.training else 0.0,
+                    generator, (*lead, 1, N, N))
         o = torch.einsum("...hqk,...khd->...qhd", w, v)
         return self.out(o.reshape(*lead, N, -1))
 
@@ -193,17 +221,25 @@ class MultiHeadAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """Post-norm encoder layer (torch nn.TransformerEncoderLayer layout)."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, n_heads)
+        self.dropout_rate = dropout_rate
+        self.attn = MultiHeadAttention(d_model, n_heads, dropout_rate)
         self.norm0 = LayerNorm(d_model)
         self.ff0 = nn.Linear(d_model, d_ff)
         self.ff1 = nn.Linear(d_ff, d_model)
         self.norm1 = LayerNorm(d_model)
 
-    def forward(self, x, mask):
-        x = self.norm0(x + self.attn(x, mask))
-        return self.norm1(x + self.ff1(torch.relu(self.ff0(x))))
+    def forward(self, x, mask, generator=None):
+        rate = self.dropout_rate if self.training else 0.0
+
+        def drop(y):
+            return dropout(y, rate, generator)
+
+        x = self.norm0(x + drop(self.attn(x, mask, generator)))
+        ff = self.ff1(drop(torch.relu(self.ff0(x))))
+        return self.norm1(x + drop(ff))
 
 
 def _time_context(beta, context):
@@ -223,7 +259,8 @@ class JointTransformerConcatLinear(nn.Module):
         ctx_dim = 3 + 2 * cfg.enc_rnn_dim
         self.concat1 = ConcatSquashLinear(cfg.pred_dim, ctx_dim, d)
         self.tf = nn.ModuleList(
-            TransformerEncoderLayer(d, cfg.n_heads, 4 * cfg.context_dim)
+            TransformerEncoderLayer(d, cfg.n_heads, 4 * cfg.context_dim,
+                                    cfg.dropout)
             for _ in range(cfg.tf_layer))
         self.concat3 = ConcatSquashLinear(d, ctx_dim, cfg.context_dim)
         self.concat4 = ConcatSquashLinear(cfg.context_dim, ctx_dim,
@@ -233,10 +270,11 @@ class JointTransformerConcatLinear(nn.Module):
         self.register_buffer("pe", positional_encoding(cfg.horizon, d),
                              persistent=False)
 
-    def forward(self, x, beta, context, scene_mask):
+    def forward(self, x, beta, context, scene_mask, generator=None):
         """x (*B, S, A, T, 2); beta (*B, S, A); context (*B, S, A, F);
         scene_mask (*B, A*T, A*T) bool, True = attend. One scene per
-        leading index; the B axes (episodes) each have their own mask."""
+        leading index; the B axes (episodes) each have their own mask.
+        ``generator`` draws the dropout masks in train mode."""
         *lead, A, T, _ = x.shape
         ctx = _time_context(beta, context)                  # (..., A, 1, 3+F)
         h = self.concat1(ctx, x)
@@ -245,11 +283,39 @@ class JointTransformerConcatLinear(nn.Module):
         # the mask broadcasts over the samples and the heads
         mask = scene_mask[..., None, None, :, :]
         for layer in self.tf:
-            h = layer(h, mask)
+            h = layer(h, mask, generator)
         h = h.reshape(*lead, A, T, -1)
         h = self.concat3(ctx, h)
         h = self.concat4(ctx, h)
         return self.linear(ctx, h)
+
+
+def init_parameters(module: nn.Module, generator=None):
+    """Flax's initializers in place: ``lecun_normal`` kernels (a normal cut
+    at two standard deviations, std sqrt(1 / fan_in) / 0.8796), orthogonal
+    recurrent LSTM kernels per gate, zero biases, LayerNorm scale 1 and
+    bias 0; drawn from ``generator``, a CPU generator."""
+    def draw(param, init, **kw):
+        # drawn on the CPU, so one seed gives one model on every device
+        x = torch.empty(param.shape)
+        init(x, generator=generator, **kw)
+        param.copy_(x)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Linear):
+                std = math.sqrt(1.0 / m.in_features) / .87962566103423978
+                draw(m.weight, nn.init.trunc_normal_, std=std, a=-2 * std,
+                     b=2 * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.scale.fill_(1.0)
+                m.bias.zero_()
+        for m in module.modules():
+            if isinstance(m, LSTMEncoder):
+                for gate in m.w_h.weight.split(m.hidden):
+                    draw(gate, nn.init.orthogonal_)
 
 
 def make_denoiser(cfg: ModelConfig, joint: bool):

@@ -4,7 +4,8 @@
 ``step`` is the original simulator's step — human policy, exact wall
 clamping, collision / reward / termination semantics and integration — as
 one function of tensors. ``reset_host`` reproduces the seeded evaluation
-protocol (case index == RNG seed) on the chosen device.
+protocol (case index == RNG seed) on the chosen device; ``reset_device``
+draws n training resets at once from a ``torch.Generator``.
 
 A state may carry leading episode axes (``reset_batch``): every function
 here indexes from the trailing end, so B episodes step as one call, and
@@ -312,14 +313,12 @@ def _dummy_prestep(state: SimState, cfg: EnvConfig) -> SimState:
     n = cfg.starts_moving
     if n <= 0:
         return state
-    dev = state.t.device
-    state = state._replace(
-        t=torch.tensor(-n * cfg.dt, dtype=torch.float32, device=dev),
-        step_idx=torch.tensor(-n, dtype=torch.int32, device=dev))
-    zero_action = torch.zeros(2, dtype=torch.float32, device=dev)
+    state = state._replace(t=torch.full_like(state.t, -n * cfg.dt),
+                           step_idx=torch.full_like(state.step_idx, -n))
+    zero_action = torch.zeros_like(state.r_pos)
     for _ in range(n):
         state, _, _ = step(state, zero_action, cfg)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
+    false = torch.zeros_like(state.done)
     return state._replace(
         has_prev_ang=false, has_prev_lin=false,
         prev_dist_to_goal=norm2(state.r_goal - state.r_pos), done=false)
@@ -347,3 +346,28 @@ def reset_batch(cfg: EnvConfig, cases, phase: str = "test",
     """``reset_host`` of every case in ``cases``, stacked on a leading
     episode axis (case == seed, as for one episode)."""
     return stack([reset_host(cfg, c, phase, device) for c in cases])
+
+
+def reset_device(cfg: EnvConfig, n: int, generator=None, device=None,
+                 draws=None) -> SimState:
+    """n resets drawn on the device (``scenarios.generate_device``) as one
+    state with a leading episode axis: the reference's ``reset_device``
+    vmapped over n keys. Draws come from ``generator`` (on ``device``) or
+    are handed in as ``draws``. Runs on CUDA unless ``device`` names
+    another device."""
+    device = resolve_device(device)
+    walls, wall_mask, door = walls_mod.build_walls(cfg)
+    walls_t = torch.as_tensor(walls, device=device)
+    wall_mask_t = torch.as_tensor(wall_mask, device=device)
+    h_arrays = scenarios.generate_device(cfg, n, walls_t, wall_mask_t,
+                                         generator, draws)
+    h_pos, h_goal, h_theta, h_radius, h_v_pref, h_mask = h_arrays
+    one = _base_state(cfg, walls, wall_mask, door, [x[0] for x in h_arrays],
+                      device)
+    state = tree_map(lambda x: x.expand(n, *x.shape).clone(), one)
+    state = state._replace(
+        h_pos=h_pos, h_theta=h_theta,
+        h_goal=intermediate_goals(h_pos, h_goal, state.door),
+        h_final_goal=h_goal, h_radius=h_radius, h_v_pref=h_v_pref,
+        h_mask=h_mask)
+    return _dummy_prestep(state, cfg)

@@ -12,9 +12,13 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import math
+
 import numpy as np
+import torch
 
 from sicnav_tpu_torch.env.types import EnvConfig
+from sicnav_tpu_torch.ops.geometry import point_to_segment_dist
 
 # phase -> case counter offset (crowd_sim_plus.py:658-659 with
 # case_capacity val=1000, test=1000)
@@ -186,3 +190,154 @@ def generate_host(cfg: EnvConfig, case: int, phase: str = "test",
         h_v_pref[i] = vp
         h_mask[i] = True
     return h_pos, h_goal, h_theta, h_radius, h_v_pref, h_mask
+
+
+# ---------------------------------------------------------------------------
+# On-device generation (bounded rejection, for batched training resets)
+# ---------------------------------------------------------------------------
+
+_TRIES = 64
+
+
+def _family(cfg: EnvConfig) -> str:
+    if cfg.scenario in ("circle_crossing", "square_crossing"):
+        return cfg.scenario
+    return "hallway"
+
+
+def device_draws(cfg: EnvConfig, n: int, generator=None, device=None):
+    """The unit uniform draws of ``generate_device`` for n episodes, each
+    with a (n, max_humans) lead: circle (v_pref, tries (.., _TRIES, 3)),
+    square (v_pref, side, start tries (.., _TRIES, 2), goal tries), hallway
+    (v_pref, start tries (.., _TRIES, 6), goal tries (.., _TRIES, 2)). The
+    reference draws the same per human from its keys."""
+    H = cfg.max_humans
+
+    def u(*shape):
+        return torch.rand((n, H) + shape, generator=generator, device=device)
+
+    family = _family(cfg)
+    if family == "circle_crossing":
+        return u(), u(_TRIES, 3)
+    if family == "square_crossing":
+        return u(), u(), u(_TRIES, 2), u(_TRIES, 2)
+    return u(), u(_TRIES, 6), u(_TRIES, 2)
+
+
+def _first_valid(bad):
+    """Index of the first candidate that is not ``bad`` (0 when all are)."""
+    return torch.argmax((~bad).to(torch.uint8), dim=-1)
+
+
+def _take(x, idx):
+    """x (n, T, 2)[arange n, idx]."""
+    return torch.gather(x, 1, idx[:, None, None].expand(-1, 1, 2))[:, 0]
+
+
+def _too_close(p, apos, arad_min, amask):
+    """(n, T) candidates p (n, T, 2) within ``arad_min`` (n, A) of an agent
+    of ``apos`` (n, A, 2) where ``amask`` (n, A)."""
+    d = torch.linalg.norm(p[:, :, None, :] - apos[:, None, :, :], dim=-1)
+    return (amask[:, None, :] & (d < arad_min[:, None, :])).any(dim=-1)
+
+
+def _wall_dist(q, walls, wall_mask):
+    """Distance of points q (n, T, 2) to the nearest active wall."""
+    d = point_to_segment_dist(walls[:, 0], walls[:, 1], q[..., None, :])
+    return torch.where(wall_mask, d, torch.full_like(d, math.inf)).amin(-1)
+
+
+def generate_device(cfg: EnvConfig, n: int, walls, wall_mask, generator=None,
+                    draws=None):
+    """Scenario generation for n episodes on the device of ``walls``: the
+    reference's ``generate_device`` with a leading episode axis. Humans are
+    placed one after another, each rejected against the robot and the
+    humans before it. ``draws`` (see ``device_draws``) replaces the draws
+    from ``generator``.
+
+    Returns (h_pos (n, H, 2), h_goal (n, H, 2), h_theta (n, H), h_radius
+    (n, H), h_v_pref (n, H), h_mask (n, H)), padded to cfg.max_humans.
+    """
+    dev = walls.device
+    H = cfg.max_humans
+    if draws is None:
+        draws = device_draws(cfg, n, generator, dev)
+    family = _family(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    pos = torch.zeros((n, H, 2), **f32)
+    goal = torch.zeros((n, H, 2), **f32)
+    vp = torch.zeros((n, H), **f32)
+    rad = torch.zeros((n, H), **f32)
+    theta = torch.zeros((n, H), **f32)
+    mask = torch.zeros((n, H), dtype=torch.bool, device=dev)
+    robot_pos = torch.tensor([0.0, -cfg.circle_radius], **f32).expand(n, 1, 2)
+    robot_goal = torch.tensor([0.0, cfg.circle_radius], **f32).expand(n, 1, 2)
+    robot_rad = torch.full((n, 1), cfg.robot_radius, **f32)
+    robot_mask = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    radius = torch.tensor(cfg.human_radius, **f32)
+    discomfort = cfg.rewards.discomfort_dist
+
+    for i in range(cfg.human_num):
+        d_i = [x[:, i] for x in draws]
+        v_pref = (d_i[0] + 0.5 if cfg.randomize_attributes else
+                  torch.full((n,), cfg.human_v_pref, **f32))
+        apos = torch.cat([robot_pos, pos], dim=1)
+        agoal = torch.cat([robot_goal, goal], dim=1)
+        arad = torch.cat([robot_rad, rad], dim=1)
+        amask = torch.cat([robot_mask, mask], dim=1)
+        th = torch.zeros((n,), **f32)
+        if family == "circle_crossing":
+            u = d_i[1]
+            angle = u[..., 0] * 2 * math.pi
+            noise = (u[..., 1:3] - 0.5) * v_pref[:, None, None]
+            p = cfg.circle_radius * torch.stack(
+                [torch.cos(angle), torch.sin(angle)], -1) + noise
+            min_dist = radius + arad + discomfort
+            bad = _too_close(p, apos, min_dist, amask) | \
+                _too_close(p, agoal, min_dist, amask)
+            p_i = _take(p, _first_valid(bad))
+            g_i = -p_i
+        elif family == "square_crossing":
+            _, side, up, ug = d_i
+            sign = torch.where(side > 0.5, -1.0, 1.0)[:, None]
+            W = cfg.square_width
+            p = torch.stack([up[..., 0] * W * 0.5 * sign,
+                             (up[..., 1] - 0.5) * W], -1)
+            g = torch.stack([ug[..., 0] * W * 0.5 * -sign,
+                             (ug[..., 1] - 0.5) * W], -1)
+            min_dist = radius + arad + discomfort
+            p_i = _take(p, _first_valid(_too_close(p, apos, min_dist, amask)))
+            g_i = _take(g, _first_valid(_too_close(g, agoal, min_dist,
+                                                   amask)))
+        else:
+            _, u, ug = d_i
+            dir_sign = torch.where(u[..., 0] < 0.15, 1.0, -1.0)
+            right_num = torch.where(dir_sign > 0, 0.8, 0.2)
+            wor_sign = torch.where(u[..., 1] < right_num, -1.0, 1.0)
+            prob_cross = torch.where(u[..., 2] < right_num, 0.7, 0.3)
+            cross_sign = torch.where(u[..., 3] < prob_cross, -wor_sign,
+                                     wor_sign)
+            width = cfg.rect_width - radius * 2
+            height = cfg.rect_height - radius * 2
+            p = torch.stack([
+                u[..., 4] * 0.5 * wor_sign * width,
+                u[..., 5] * 0.25 * dir_sign * cfg.circle_radius * height], -1)
+            g = torch.stack([
+                ug[..., 0] * 0.5 * cross_sign * width,
+                ug[..., 1] * 0.5 * -dir_sign * cfg.circle_radius * height], -1)
+            bad = _too_close(p, apos, radius + arad, amask)
+            bad |= torch.linalg.norm(p - robot_pos, dim=-1) < \
+                radius + cfg.robot_radius + discomfort
+            bad |= _too_close(g, agoal, radius + arad, amask)
+            bad |= _wall_dist(p, walls, wall_mask) < radius + 0.01
+            bad |= _wall_dist(g, walls, wall_mask) < radius
+            idx = _first_valid(bad)
+            p_i, g_i = _take(p, idx), _take(g, idx)
+            th = torch.atan2(g_i[:, 1] - p_i[:, 1], g_i[:, 0] - p_i[:, 0])
+        pos[:, i] = p_i
+        goal[:, i] = g_i
+        vp[:, i] = v_pref
+        rad[:, i] = radius
+        theta[:, i] = th
+        mask[:, i] = True
+    return pos, goal, theta, rad, vp, mask

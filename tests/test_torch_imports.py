@@ -13,6 +13,7 @@
 
 import ast
 import pathlib
+import sys
 
 import pytest
 import torch
@@ -30,9 +31,12 @@ from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sicnav_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
+SCRIPTS = [ROOT / "scripts" / name for name in (
+    "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py")]
 PY_FILES = sorted(PKG.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kde_kernel.py",
-    ROOT / "scripts" / "eval_suite_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kde_kernel.py"] + \
+    SCRIPTS
+sys.path.insert(0, str(ROOT / "scripts"))
 
 
 def _imported_roots(path):
@@ -59,6 +63,19 @@ def test_scan_covers_the_mpc():
         assert f"mpc/{name}.py" in scanned, name
 
 
+def test_scan_covers_training_and_evaluation():
+    """The training slice's modules and scripts are among the files
+    scanned."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("policies/orca_robot", "env/scenarios", "env/crowd_sim",
+                 "diffusion/data", "diffusion/diffusion", "diffusion/models",
+                 "diffusion/mid", "diffusion/evaluation",
+                 "diffusion/baselines", "utils/metrics", "convert"):
+        assert f"sicnav_tpu_torch/{name}.py" in scanned, name
+    for p in SCRIPTS:
+        assert p.exists() and p.relative_to(ROOT).as_posix() in scanned
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import os\nfrom sicnav_tpu.ops import orca\n")
@@ -83,8 +100,14 @@ def test_package_holds_source_only():
 
 
 def test_entry_points_default_to_cuda():
+    import eval_prediction_torch
+    import train_jmid_torch
     cfg = T.EnvConfig()
     calls = [
+        lambda: CS.reset_device(cfg, 2),
+        lambda: train_jmid_torch.generate_sim_scenes(2, cfg),
+        lambda: train_jmid_torch.main([]),
+        lambda: eval_prediction_torch.main([]),
         lambda: CS.reset_host(cfg, 0),
         lambda: FC.init_state(cfg.max_humans, FC.ForecasterConfig()),
         lambda: MID.JMIDModel(M.ModelConfig(context_dim=8, enc_rnn_dim=4,

@@ -29,6 +29,9 @@ PROTOCOL_SHAPES = [(8, 48, 6), (24, 48, 2)]
 # the protocol's joint ranking of ten episodes in one call (the batched
 # control step): 10 x 8 groups
 BATCH_SHAPES = [(80, 48, 6)]
+# the validation sweep's joint ranking (eval_scene_full, 20 samples): 5
+# humans (train_jmid's sim scenes) and 3
+SWEEP_SHAPES = [(8, 20, 10), (8, 20, 6)]
 # S > 64 and not a multiple of 32, odd D; S > 128 at an instantiated D; a
 # wide D in the masked instantiation; shared memory above the default 48 KB,
 # which the kernel takes only after opting in
@@ -103,7 +106,8 @@ def _cuda_or_skip():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,S,D", SHAPES + MAIN_PATH_SHAPES[1:] +
-                         PROTOCOL_SHAPES + BATCH_SHAPES + KERNEL_SHAPES)
+                         PROTOCOL_SHAPES + BATCH_SHAPES + SWEEP_SHAPES +
+                         KERNEL_SHAPES)
 def test_cuda_kernel_matches_plain(G, S, D):
     _cuda_or_skip()
     y, z = _inputs(G, S, D)
