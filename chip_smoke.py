@@ -88,6 +88,29 @@ Phases, in order; each prints one line with its own seconds:
             kernel held against its plain version on the sweep's inputs;
             the checkpoint saved, loaded into a fresh model and sampled
             bit-equal, then served for one forecast of the protocol env.
+11. rl      the SARL and RGL baselines (rl_env: circle crossing, 3 ORCA
+            humans, 15 s, unicycle robot). serve: greedy SARL and RGL from
+            weights/{sarl,rgl}_200k.npz over host cases 0..RL_CASES-1 at
+            the full 62 steps, one batch, through harness.evaluate_policy
+            (summary, the batched control step's and the greedy action's
+            ms, median and p90, one profiled batched step's launches and
+            busy share); gate: the same cases on the
+            CPU, step 0's Q within RL_Q_TOL and each case's outcome equal
+            unless a near tie (top-two gap <= RL_TIE) first split the
+            actions. train: train_rl_torch.py's path at the published
+            widths, IL_EPISODES demonstrations, IL_EPOCHS epochs, then DQN
+            at DQN_ENVS environments for DQN_COLLECT_STEPS collect steps
+            (seconds, IL losses, collect- and train-step ms, env steps per
+            second, the last history record); one profiled collect + train
+            step (launches, busy share, peak memory); the host syncs of a
+            collect + train step under torch's sync debug mode (the ORCA
+            LP's one read and no other); one train step and one collect
+            step card vs CPU (RL_TRAIN_TOL); the training checkpoint's
+            round trip bit-equal. lookahead2: one make_q2_fn call on
+            LOOKAHEAD2_ENVS environments (ms, launches). humans: one env
+            step with SFM humans in the hallway bottleneck and one with
+            linear humans in circle crossing, card vs CPU (RL_HUMANS_TOL).
+            No kernel of the port is on this path (its launches: 0).
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -169,6 +192,25 @@ TRAIN_EPOCHS = 2
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4   # of each gradient tensor's largest entry
 TRAIN_PARAM_TOL = 1e-5  # after the clip and the Adam update
+# The rl phase: the SARL and RGL baselines of the reference's RL
+# configuration (rl_env), served from weights/{sarl,rgl}_200k.npz and
+# trained by train_rl_torch.py's path at the published widths and the
+# records' n_envs = 64, cut from 300 IL episodes, 100 IL epochs and
+# 200,000 env steps.
+RL_WEIGHTS = {name: os.path.join(ROOT, "weights", f"{name}_200k.npz")
+              for name in ("sarl", "rgl")}
+RL_CASES = 10
+RL_Q_TOL = 1e-4         # step 0's Q-values, card vs CPU
+RL_TIE = 1e-4           # a top-two Q gap at most this is a near tie
+IL_EPISODES = 32
+IL_EPOCHS = 5
+DQN_ENVS = 64
+DQN_COLLECT_STEPS = 100
+LOOKAHEAD2_ENVS = 8
+# one DQN train step and one collect step, card vs CPU; one env step with
+# SFM or linear humans, card vs CPU
+RL_TRAIN_TOL = 1e-5
+RL_HUMANS_TOL = 1e-5
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -688,11 +730,11 @@ def protocol_env():
 def trained_model(device):
     """The trained hallway JMID predictor at its shipped widths, from the
     converted weights in the checkout (scripts/convert_jmid_torch.py)."""
-    from sicnav_tpu_torch.convert import load_jmid_npz
+    from sicnav_tpu_torch.convert import load_npz
     from sicnav_tpu_torch.diffusion.mid import JMIDModel
     from sicnav_tpu_torch.diffusion.models import ModelConfig
     model = JMIDModel(ModelConfig(context_dim=128, tf_layer=2), device=device)
-    model.load_state_dict(load_jmid_npz(WEIGHTS))
+    model.load_state_dict(load_npz(WEIGHTS))
     return model
 
 
@@ -1566,6 +1608,488 @@ def phase_train(K, device="cuda", mcfg=None, n_scenes=TRAIN_SCENES,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rl phase: the SARL and RGL baselines, served and trained
+# ---------------------------------------------------------------------------
+
+def rl_env():
+    """The reference's RL configuration (scripts/eval_suite.py and
+    train_rl.py at their defaults): circle crossing, 3 ORCA humans in 3
+    slots starting at once, 15 s (62 steps), a unicycle robot."""
+    from sicnav_tpu_torch.env.types import EnvConfig
+    return EnvConfig(scenario="circle_crossing", human_policy="orca",
+                     human_num=3, max_humans=3, starts_moving=0,
+                     time_limit=15.0, robot_kinematics="unicycle")
+
+
+def _profiled(fn):
+    """torch.profiler (device activity) over one call of ``fn``: returns
+    (wall ms, device busy ms, launches, the result)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    busy_ms = sum(d for _, d in events) / 1e3
+    assert busy_ms > 0, "the profiler saw no device time"
+    return wall_ms, busy_ms, len(events), out
+
+
+def rl_greedy(name, device, record=None):
+    """The greedy policy of ``name``'s value network with the shipped
+    weights (weights/<name>_200k.npz) on rl_env(), and the network."""
+    from sicnav_tpu_torch.convert import load_npz
+    from sicnav_tpu_torch.rl import dqn as D
+    from sicnav_tpu_torch.rl.networks import make_network
+    cfg = rl_env()
+    net = make_network(name, device=device)
+    net.load_state_dict(load_npz(RL_WEIGHTS[name]))
+    net.eval()
+    dqn = D.DQNConfig()
+    actions = D.build_action_space(cfg, dqn, device)
+    return D.greedy_policy(net, cfg, dqn, actions, record), net
+
+
+def _top2_gap(q):
+    top = q.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def rl_serve(name, device, n_cases):
+    """Greedy ``name`` from weights/<name>_200k.npz over host cases
+    0..n_cases-1 of rl_env() at the full 62 steps, one batch, through
+    harness.evaluate_policy. Returns (summary, per-case EpisodeStats, the
+    Q-values of every step (T, B, A) on the CPU, the greedy actions' and
+    the control steps' seconds: a control step runs from one greedy
+    action to the next, the env step and the episode statistics
+    included)."""
+    from sicnav_tpu_torch import harness
+    from sicnav_tpu_torch.env import rollout
+
+    cfg = rl_env()
+    record, times, steps, last = [], [], [], []
+    greedy, _ = rl_greedy(name, device, record)
+
+    def policy(states):
+        _sync(device)
+        t0 = time.perf_counter()
+        if last:
+            steps.append(t0 - last[-1])
+        last.append(t0)
+        action = greedy(states)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        return action
+
+    stats = []
+
+    def kept(orig):
+        def fn(*args, **kwargs):
+            out = orig(*args, **kwargs)
+            stats.append(out[1])
+            return out
+        return fn
+
+    restore = _wrap(rollout, "batch_rollout", kept)
+    try:
+        res = harness.evaluate_policy(policy, cfg, n_cases, batch=n_cases,
+                                      device=device)
+    finally:
+        restore()
+    q = torch.stack(record).cpu()
+    assert bool(torch.isfinite(q).all()), name
+    return res, stats[0], q, (times, steps)
+
+
+def rl_serve_gate(name, card, cpu):
+    """The card's serve against the CPU's on the same cases: step 0's
+    Q-values within RL_Q_TOL, each case's outcome equal unless a step
+    whose top-two Q gap is at most RL_TIE (on either side) first split the
+    two runs' actions. Returns the cases such a near tie decided."""
+    (_, st_g, q_g, _), (_, st_c, q_c, _) = card, cpu
+    err0 = (q_g[0] - q_c[0]).abs().max().item()
+    assert err0 <= RL_Q_TOL, (name, err0)
+    ties = []
+    for b in range(q_g.shape[1]):
+        outcome = [(bool(s.success[b]), bool(s.timeout[b]),
+                    int(s.collision_steps[b]) > 0, float(s.nav_time[b]))
+                   for s in (st_g, st_c)]
+        if outcome[0] == outcome[1]:
+            continue
+        split = (q_g[:, b].argmax(-1) != q_c[:, b].argmax(-1)).nonzero()
+        assert len(split), (name, b, outcome)
+        t = int(split[0])
+        gap = min(_top2_gap(q_g[t, b]).item(), _top2_gap(q_c[t, b]).item())
+        assert gap <= RL_TIE, (name, b, t, gap, outcome)
+        ties.append((b, t, gap))
+    log(f"  [{name}] card vs CPU: step 0's Q within {err0:.3e} (bound "
+        f"{RL_Q_TOL}); cases a near tie decided: "
+        + (", ".join(f"case {b} (step {t}, top-two gap {g:.2e})"
+                     for b, t, g in ties) or "none"))
+    return ties
+
+
+def rl_profile_serve(name, device, n_cases):
+    """One batched greedy step with its env step, profiled."""
+    from sicnav_tpu_torch.env import crowd_sim
+
+    cfg = rl_env()
+    greedy, _ = rl_greedy(name, device)
+    states = crowd_sim.reset_batch(cfg, range(n_cases), device=device)
+
+    def step():
+        return crowd_sim.step_masked(states, greedy(states), cfg)
+
+    step()
+    wall, busy, launches, _ = _profiled(step)
+    log(f"  [{name}] one batched control step (B = {n_cases}, profiled): "
+        f"wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f} %), {launches} device launches")
+
+
+def rl_sync_count(collect, train_once, states):
+    """Host syncs torch's sync debug mode reports over one collect step and
+    one train step: each read of the device warns "called a synchronizing
+    CUDA operation" once (the mode's own notice that it is a prototype is
+    not counted)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = collect(states)
+            train_once(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught
+            if str(w.message).startswith("called a synchronizing")]
+
+
+def rl_train_cross(net, target, batch, dqn, devices=("cuda", "cpu")):
+    """One train step on the card against the CPU from the same
+    parameters, target and batch: loss and parameters after Adam within
+    RL_TRAIN_TOL. SARL's last attention bias, whose gradient is rounding
+    alone (the softmax cancels it), is held to 3 lr of its start.
+    ``devices`` exists for the CPU rehearsal."""
+    from sicnav_tpu_torch.rl import dqn as D
+    from sicnav_tpu_torch.rl.networks import make_network
+    out = []
+    for dev in devices:
+        n, t = make_network("sarl", device=dev), make_network("sarl",
+                                                               device=dev)
+        n.load_state_dict(net.state_dict())
+        t.load_state_dict(target.state_dict())
+        opt = D.make_optimizer(n, dqn)
+        b = D.Transition(*[x.to(dev) for x in batch])
+        loss = D.train_step(n, t, opt, b, dqn.gamma)
+        out.append((loss.item(), n.state_dict()))
+    (l_g, p_g), (l_c, p_c) = out
+    shift = "attention.layers.2.bias"
+    moved = max((p[shift].cpu() - net.state_dict()[shift].cpu()).abs().max()
+                .item() for p in (p_g, p_c))
+    assert moved <= 3 * dqn.lr, moved
+    p_err, p_at = _state_close("parameters", p_g,
+                               {k: v for k, v in p_c.items() if k != shift},
+                               RL_TRAIN_TOL, False)
+    l_err = abs(l_g - l_c)
+    log(f"  one DQN train step, card vs CPU (batch {batch.reward.shape[0]}):"
+        f" loss {l_g:.7f} vs {l_c:.7f}, err {l_err:.3e} (bound "
+        f"{RL_TRAIN_TOL}); parameters after Adam max err {p_err:.3e} "
+        f"({p_at}; bound {RL_TRAIN_TOL}); the softmax-cancelled bias moved "
+        f"{moved:.2e} (bound 3 lr = {3 * dqn.lr:.1e})")
+    assert l_err <= RL_TRAIN_TOL, l_err
+
+
+def rl_collect_cross(net, cfg, dqn, states, devices=("cuda", "cpu")):
+    """One collect step on the card and on the CPU from the same states,
+    parameters and handed-in draws: transitions within RL_TRAIN_TOL where
+    the chosen actions agree, which they must wherever the top-two gap
+    exceeds RL_TIE or the step explores. ``devices`` exists for the CPU
+    rehearsal."""
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.rl import dqn as D
+    from sicnav_tpu_torch.rl.networks import make_network
+    B = states.t.shape[0]
+    A = 1 + dqn.speed_samples * dqn.rotation_samples
+    draws = D.collect_draws(cfg, B, A, torch.Generator().manual_seed(SEED + 5),
+                            "cpu")
+    step = 1000                    # exploring at eps = 0.4
+    out = []
+    for dev in devices:
+        n = make_network("sarl", device=dev)
+        n.load_state_dict(net.state_dict())
+        acts = D.build_action_space(cfg, dqn, dev)
+        s = crowd_sim.tree_map(lambda x: x.to(dev), states)
+        with torch.no_grad():
+            q = D.make_q_fn(n, cfg, dqn, acts)(s)
+        d = (draws[0].to(dev), draws[1].to(dev),
+             tuple(x.to(dev) for x in draws[2]))
+        collect = D.make_collect_step(n, cfg, dqn, acts)
+        _, trans, _ = collect(s, step, draws=d)
+        out.append((q.cpu(), crowd_sim.tree_map(lambda x: x.cpu(), trans)))
+    (q_g, tr_g), (q_c, tr_c) = out
+    explore = draws[0] < D.epsilon(step, dqn)
+    chose_g = torch.where(explore, draws[1], q_g.argmax(-1))
+    chose_c = torch.where(explore, draws[1], q_c.argmax(-1))
+    decided = explore | (torch.minimum(_top2_gap(q_g), _top2_gap(q_c)) >
+                         RL_TIE)
+    assert torch.equal(chose_g[decided], chose_c[decided])
+    same = chose_g == chose_c
+    worst = max((g[same].double() - c[same].double()).abs().max().item()
+                for g, c in zip(tr_g, tr_c) if g.dtype != torch.bool)
+    for g, c in zip(tr_g, tr_c):
+        if g.dtype == torch.bool:
+            assert torch.equal(g[same], c[same])
+    log(f"  one collect step, card vs CPU (B = {B}, the same draws): "
+        f"{int(explore.sum())} explored, {int((~decided).sum())} greedy "
+        f"choices within a near tie, {int((~same).sum())} actions apart; "
+        f"transitions max err {worst:.3e} (bound {RL_TRAIN_TOL})")
+    assert worst <= RL_TRAIN_TOL, worst
+
+
+def rl_train(device, il_episodes, il_epochs, n_envs, collect_steps, dqn,
+             out_dir):
+    """train_rl_torch.py's path at the published widths: the imitation
+    bootstrap, then D.train; then the CUDA-only measurements and gates."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_rl_torch as TR
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.rl import dqn as D
+    from sicnav_tpu_torch.rl import imitation as IL
+    from sicnav_tpu_torch.rl.networks import make_network
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = TR.env_config(TR.parse_args([]))
+    assert cfg == rl_env(), cfg
+    il = IL.ILConfig(il_episodes=il_episodes, il_epochs=il_epochs)
+    net = make_network("sarl", device=device, seed=SEED)
+    log_every = max(collect_steps // 4, 1)
+    log(f"  cuts: IL_EPISODES {il_episodes} of 300, IL_EPOCHS {il_epochs} of "
+        f"100, DQN {n_envs} x {collect_steps} = {n_envs * collect_steps} of "
+        f"200,000 env steps; log_every {log_every} of 200")
+
+    _sync(device)
+    t0 = time.perf_counter()
+    data = IL.collect_demonstrations(cfg, il, seed=SEED, device=device)
+    _sync(device)
+    demo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, losses = IL.fit_value_net(net, data, il, seed=SEED)
+    fit_s = time.perf_counter() - t0
+    assert all(math.isfinite(x) for x in losses), losses
+    log(f"  demonstrations: {data[0].shape[0]} states of {il_episodes} "
+        f"episodes in {demo_s:.2f} s; IL fit {il_epochs} epochs in "
+        f"{fit_s:.2f} s, loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+
+    times = {"collect": [], "train": []}
+
+    def timed(kind):
+        def wrapper(orig):
+            def fn(*args, **kwargs):
+                _sync(device)
+                t1 = time.perf_counter()
+                out = orig(*args, **kwargs)
+                _sync(device)
+                times[kind].append(time.perf_counter() - t1)
+                return out
+            return fn
+        return wrapper
+
+    def timed_factory(orig):
+        def make(*args, **kwargs):
+            return timed("collect")(orig(*args, **kwargs))
+        return make
+
+    restores = [_wrap(D, "train_step", timed("train")),
+                _wrap(D, "make_collect_step", timed_factory)]
+    try:
+        t0 = time.perf_counter()
+        params, history = D.train(net, cfg, dqn, n_envs=n_envs, seed=SEED,
+                                  total_steps=n_envs * collect_steps,
+                                  log_every=log_every, device=device)
+        _sync(device)
+        dqn_s = time.perf_counter() - t0
+    finally:
+        for r in restores:
+            r()
+    assert history, "no history record: no train step was logged"
+    for h in history:
+        assert math.isfinite(h["loss"]), h
+    assert all(bool(torch.isfinite(v).all()) for v in params.values())
+    for kind, xs in times.items():
+        log(f"  {kind} step: median {statistics.median(xs) * 1e3:.2f} ms, "
+            f"p90 {pct(xs, 0.9) * 1e3:.2f} ms over {len(xs)} steps")
+    log(f"  DQN {n_envs * collect_steps} env steps in {dqn_s:.2f} s: "
+        f"{n_envs * collect_steps / dqn_s:.1f} env steps per second; last "
+        f"record {json.dumps(history[-1])}")
+
+    # one collect and one train step outside D.train, for the profile, the
+    # sync count, the card-vs-CPU gates and the checkpoint
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    actions = D.build_action_space(cfg, dqn, device)
+    states = crowd_sim.reset_device(cfg, n_envs, gen, device)
+    collect = D.make_collect_step(net, cfg, dqn, actions, base=states)
+    buf = D.ReplayBuffer.create(dqn.buffer_capacity, cfg.max_humans, device)
+    target = make_network("sarl", device=device)
+    target.load_state_dict(net.state_dict())
+    opt = D.make_optimizer(net, dqn)
+    step = 0
+    while buf.size < dqn.batch_size:
+        states, trans, _ = collect(states, step, gen)
+        buf = D.buffer_add(buf, trans, n_envs)
+        step += n_envs
+    carry = {"states": states, "buf": buf}
+
+    def collect_once(s):
+        s, trans, _ = collect(s, step, gen)
+        carry["buf"] = D.buffer_add(carry["buf"], trans, n_envs)
+        return s
+
+    def train_once(_):
+        batch = D.buffer_sample(carry["buf"], dqn.batch_size, gen)
+        return D.train_step(net, target, opt, batch, dqn.gamma)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, launches, _ = _profiled(
+            lambda: train_once(collect_once(carry["states"])))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  one collect + train step (profiled, B = {n_envs}): wall "
+            f"{wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall:.1f} %), {launches} device launches, peak "
+            f"device memory (max_memory_allocated) {peak / 2**20:.1f} MiB")
+        syncs = rl_sync_count(collect_once, train_once, carry["states"])
+        log(f"  host syncs in one collect + train step (sync debug mode): "
+            f"{len(syncs)} (the ORCA LP's one read): {syncs}")
+        assert len(syncs) == 1, syncs
+        batch = D.buffer_sample(carry["buf"], dqn.batch_size, gen)
+        rl_train_cross(net, target, batch, dqn)
+        rl_collect_cross(net, cfg, dqn, crowd_sim.tree_map(
+            lambda x: x.cpu(), carry["states"]))
+
+    # the training checkpoint: saved and loaded bit-equal
+    path = os.path.join(out_dir, "dqn_ckpt")
+    D.save_train_checkpoint(path, step, net.state_dict(), target.state_dict(),
+                            opt.state_dict(), carry["buf"])
+    st, p2, tp2, opt2, buf2 = D.load_train_checkpoint(path, device)
+    assert st == step and (buf2.idx, buf2.size) == (carry["buf"].idx,
+                                                     carry["buf"].size)
+    for a, b in ((net.state_dict(), p2), (target.state_dict(), tp2)):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for x, y in zip(carry["buf"].data, buf2.data):
+        assert torch.equal(x, y)
+    for k, v in opt.state_dict()["state"].items():
+        for name, x in v.items():
+            assert torch.equal(x.cpu(), opt2["state"][k][name].cpu()), name
+    log(f"  training checkpoint {os.path.relpath(path, ROOT)} "
+        f"({os.path.getsize(os.path.join(path, D.CHECKPOINT_FILE))} bytes, "
+        f"buffer {carry['buf'].size} of {dqn.buffer_capacity}): loaded "
+        f"bit-equal")
+    return history
+
+
+def rl_lookahead2(device, n_envs):
+    """One make_q2_fn call on n_envs circle-crossing resets with SARL at
+    the shipped weights: its ms and launches."""
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.rl import dqn as D
+    cfg = rl_env()
+    _, net = rl_greedy("sarl", device)
+    dqn = D.DQNConfig()
+    q2 = D.make_q2_fn(net, cfg, dqn, D.build_action_space(cfg, dqn, device))
+    states = crowd_sim.reset_batch(cfg, range(n_envs), device=device)
+
+    def call():
+        with torch.no_grad():
+            return q2(states)
+
+    q = call()
+    assert q.shape == (n_envs, 31) and bool(torch.isfinite(q).all())
+    if torch.device(device).type == "cuda":
+        ms = call_ms(call, n=5, warmup=1)
+        wall, busy, launches, _ = _profiled(call)
+        log(f"  make_q2_fn on {n_envs} environments ({n_envs} x 31 x 31 = "
+            f"{n_envs * 961} two-step branches): {ms:.2f} ms "
+            f"(median of 5, synchronized); profiled: wall {wall:.2f} ms, "
+            f"device busy {busy:.2f} ms, {launches} device launches")
+
+
+def rl_humans(device):
+    """One env step with SFM humans in the hallway bottleneck and one with
+    linear humans in circle crossing, on ``device`` against the CPU."""
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.env.types import EnvConfig
+    worst = {}
+    for policy, scenario in (("sfm", "hallway_bottleneck"),
+                             ("linear", "circle_crossing")):
+        cfg = EnvConfig(scenario=scenario, human_policy=policy, human_num=5,
+                        max_humans=5, starts_moving=0,
+                        robot_kinematics="unicycle")
+        action = torch.tensor([[0.8, 0.1], [0.5, -0.2], [1.0, 0.0],
+                               [0.2, 0.3]])
+        out = {}
+        for dev in (device, "cpu"):
+            s = crowd_sim.reset_batch(cfg, range(4), device=dev)
+            out[dev] = crowd_sim.tree_map(
+                lambda x: x.cpu(), crowd_sim.step_masked(s, action.to(dev),
+                                                         cfg)[0])
+        err = 0.0
+        for a, b in zip(out[device], out["cpu"]):
+            if not torch.is_tensor(a):
+                continue
+            if a.is_floating_point():
+                err = max(err, (a.double() - b.double()).abs().max().item())
+            else:
+                assert torch.equal(a, b), policy
+        assert err <= RL_HUMANS_TOL, (policy, err)
+        worst[policy] = err
+    log(f"  one env step of 4 episodes, {device} vs CPU: SFM humans in the "
+        f"hallway bottleneck {worst['sfm']:.3e}, linear humans in circle "
+        f"crossing {worst['linear']:.3e} (bound {RL_HUMANS_TOL})")
+
+
+def phase_rl(device="cuda", n_cases=RL_CASES, il_episodes=IL_EPISODES,
+             il_epochs=IL_EPOCHS, n_envs=DQN_ENVS,
+             collect_steps=DQN_COLLECT_STEPS, dqn=None,
+             lookahead2_envs=LOOKAHEAD2_ENVS, out_dir=None):
+    """The SARL and RGL baselines: serve, train, lookahead2, humans. The
+    keyword arguments exist for the CPU rehearsal
+    (tests/test_torch_rl_eval.py); the CUDA-only checks (the CPU gates,
+    profiles, the sync count) run on the card."""
+    from sicnav_tpu_torch.rl import dqn as D
+    cuda = torch.device(device).type == "cuda"
+    if dqn is None:
+        dqn = D.DQNConfig()
+    if out_dir is None:
+        out_dir = os.path.join(ROOT, "build", "rl")
+    os.makedirs(out_dir, exist_ok=True)
+    for name in ("sarl", "rgl"):
+        t0 = time.perf_counter()
+        served = rl_serve(name, device, n_cases)
+        res, _, q, (times, steps) = served
+        log(f"  [{name}] greedy over host cases 0-{n_cases - 1} (62 steps, "
+            f"batch {n_cases}) in {time.perf_counter() - t0:.2f} s: success "
+            f"{res['success_rate']}, collision {res['collision_episode_rate']},"
+            f" timeout {res['timeout_rate']}, mean nav time "
+            f"{res['mean_nav_time']} s; batched control step median "
+            f"{statistics.median(steps) * 1e3:.2f} ms, p90 "
+            f"{pct(steps, 0.9) * 1e3:.2f} ms, of which the greedy action "
+            f"{statistics.median(times) * 1e3:.2f} ms, p90 "
+            f"{pct(times, 0.9) * 1e3:.2f} ms, over {len(times)} steps")
+        if cuda:
+            rl_profile_serve(name, device, n_cases)
+            rl_serve_gate(name, served, rl_serve(name, "cpu", n_cases))
+    history = rl_train(device, il_episodes, il_epochs, n_envs, collect_steps,
+                       dqn, out_dir)
+    rl_lookahead2(device, lookahead2_envs)
+    rl_humans(device)
+    return history
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1622,6 +2146,10 @@ def main():
         phase_harness()
     with Phase("train"):
         entry["launches_by_path"]["train"] = phase_train(K)
+    with Phase("rl"):
+        K.kde_loglik.launches = 0
+        phase_rl()
+        entry["launches_by_path"]["rl"] = K.kde_loglik.launches
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

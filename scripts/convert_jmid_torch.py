@@ -9,7 +9,7 @@ Reads the Orbax checkpoint with the JAX package's own reader
 ``ModelConfig(context_dim=128, tf_layer=2)``), maps the Flax tree through
 ``sicnav_tpu_torch.convert.jmid_state_dict`` and saves the state_dict as one
 ``.npz`` of float32 arrays, keyed by parameter name. The port reads it with
-numpy alone (``convert.load_jmid_npz``), so a machine without JAX, Flax or
+numpy alone (``convert.load_npz``), so a machine without JAX, Flax or
 Orbax runs the trained predictor. Prints the file's size.
 """
 

@@ -81,7 +81,7 @@ def main(argv=None):
     if args.num_node_types > 1:
         raise NotImplementedError(f"--num_node_types > 1 {NOT_PORTED}")
 
-    from sicnav_tpu_torch.convert import load_jmid_npz
+    from sicnav_tpu_torch.convert import load_npz
     from sicnav_tpu_torch.device import resolve_device
     from sicnav_tpu_torch.diffusion import evaluation as EV
     from sicnav_tpu_torch.diffusion.diffusion import nfe_count
@@ -106,7 +106,7 @@ def main(argv=None):
         model = JMIDModel(ModelConfig(context_dim=args.encoder_dim,
                                       tf_layer=args.tf_layer), joint=True,
                           device=device)
-        model.load_state_dict(load_jmid_npz(args.weights))
+        model.load_state_dict(load_npz(args.weights))
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     if args.time and model is not None:

@@ -61,7 +61,7 @@ def main(argv=None):
     metrics = [k[len("card_"):] for k in f.files if k.startswith("card_")]
     cfg_kw = dict(context_dim=args.encoder_dim, tf_layer=args.tf_layer,
                   enc_rnn_dim=args.enc_rnn_dim)
-    sd = convert.load_jmid_npz(os.path.join(args.dir, "jmid_train.npz"))
+    sd = convert.load_npz(os.path.join(args.dir, "jmid_train.npz"))
     port = MID.JMIDModel(M.ModelConfig(**cfg_kw), device="cpu")
     port.load_state_dict(sd)
     ref = MID_ref.JMIDModel(M_ref.ModelConfig(**cfg_kw), joint=True)

@@ -11,7 +11,7 @@ Data comes from batched sim rollouts generated on the device (resets from
 examples every 4 steps) or from ETH/UCY-style files (``--data_files``,
 ``--val_data_files``). Training runs ``mid.fit`` (Adam, per-epoch decay,
 early stopping on val ADE) and writes the best parameters to ``--out`` as
-an ``.npz`` that ``convert.load_jmid_npz`` and
+an ``.npz`` that ``convert.load_npz`` and
 ``sicnav_diffusion.make_policy`` take as they are. Prints the example counts
 to stderr, then JSON lines: the run's summary, the last epochs, and with
 ``--val_full`` the full metric sweep over the validation scenes.

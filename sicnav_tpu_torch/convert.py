@@ -1,5 +1,5 @@
-"""JMID parameters between the reference's Flax layout and the port's
-modules, and the port's ``.npz`` weight files.
+"""JMID, SARL and RGL parameters between the reference's Flax layout and
+the port's modules, and the port's ``.npz`` weight files.
 
 ``jmid_state_dict`` takes the reference's JMID parameter tree as nested
 dicts of numpy arrays (the ``params`` collection of
@@ -11,7 +11,14 @@ tree can come from any reader of the reference's checkpoints.
 reference's ``{"params": ...}`` tree of numpy arrays, which the reference's
 ``model.apply`` takes (so the reference can score weights the port
 trained, and tests can map the port's gradients onto the reference's).
-``save_jmid_npz`` / ``load_jmid_npz`` write and read the port's layout.
+``save_npz`` / ``load_npz`` write and read any state_dict in the port's
+layout.
+
+``sarl_state_dict`` and ``rgl_state_dict`` do the same for the RL value
+networks (``sicnav_tpu.rl.networks``): every ``MLP`` submodule's
+``Dense_i`` becomes ``<mlp>.layers.<i>``, and RGL's raw ``w_a``, ``w1``
+and ``w2`` are kept as they are (they multiply from the right in both
+packages). ``rl_flax_params`` is their inverse.
 
 Layouts handled:
 - ``Dense`` kernels are (in, out); ``nn.Linear`` weights are (out, in).
@@ -99,11 +106,55 @@ def jmid_state_dict(params) -> dict:
     return sd
 
 
-def load_jmid_npz(path) -> dict:
-    """The port's JMID state_dict from an ``.npz`` written by
-    ``scripts/convert_jmid_torch.py`` (numpy only: no JAX, Flax or Orbax)."""
+def load_npz(path) -> dict:
+    """A state_dict of the port from an ``.npz`` of float32 arrays keyed by
+    parameter name, as ``scripts/convert_jmid_torch.py`` and
+    ``scripts/convert_rl_torch.py`` write them (numpy only: no JAX, Flax or
+    Orbax)."""
     with np.load(path) as f:
         return {k: _t(f[k]) for k in f.files}
+
+
+def _rl_state_dict(params, mlps, raw=()) -> dict:
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for name in mlps:
+        for dense, p in params[name].items():
+            _dense(sd, f"{name}.layers.{int(dense.split('_')[1])}", p)
+    for name in raw:
+        if name in params:
+            sd[name] = _t(params[name])
+    return sd
+
+
+def sarl_state_dict(params) -> dict:
+    """Reference SARLNetwork parameter tree (numpy) -> the port's
+    state_dict."""
+    return _rl_state_dict(params, ("mlp1", "mlp2", "attention", "mlp3"))
+
+
+def rgl_state_dict(params) -> dict:
+    """Reference RGLNetwork parameter tree (numpy) -> the port's
+    state_dict."""
+    return _rl_state_dict(params, ("w_r", "w_h", "value_net"),
+                          ("w_a", "w1", "w2"))
+
+
+def rl_flax_params(state_dict) -> dict:
+    """The port's SARL or RGL state_dict -> the reference's variables
+    ``{"params": tree}`` as nested dicts of numpy arrays."""
+    tree = {}
+    for k, v in state_dict.items():
+        parts = k.split(".")
+        if len(parts) == 1:
+            tree[k] = _np(v)
+            continue
+        mlp, _, i, kind = parts
+        dense = tree.setdefault(mlp, {}).setdefault(f"Dense_{i}", {})
+        dense["kernel" if kind == "weight" else "bias"] = (
+            _np(v).T if kind == "weight" else _np(v))
+    return {"params": tree}
 
 
 def _np(x):
@@ -174,7 +225,7 @@ def flax_params(state_dict, n_heads: int = 4) -> dict:
     return {"params": {"encoder": enc, "denoiser": den}}
 
 
-def save_jmid_npz(path, state_dict):
-    """Write a JMID state_dict as one ``.npz`` of float32 arrays keyed by
-    parameter name, the file ``load_jmid_npz`` reads."""
+def save_npz(path, state_dict):
+    """Write a state_dict as one ``.npz`` of float32 arrays keyed by
+    parameter name, the file ``load_npz`` reads."""
     np.savez(path, **{k: _np(v) for k, v in state_dict.items()})

@@ -393,11 +393,11 @@ def fit(model: JMIDModel, train_batches, val_batches, tc: TrainConfig,
 
 
 def save_checkpoint(path, state_dict):
-    """A state_dict as an ``.npz`` in the layout ``convert.load_jmid_npz``
+    """A state_dict as an ``.npz`` in the layout ``convert.load_npz``
     reads (so ``sicnav_diffusion.make_policy`` serves it as it is)."""
-    convert.save_jmid_npz(path, state_dict)
+    convert.save_npz(path, state_dict)
 
 
 def load_checkpoint(path):
     """The state_dict of an ``.npz`` checkpoint (CPU tensors)."""
-    return convert.load_jmid_npz(path)
+    return convert.load_npz(path)

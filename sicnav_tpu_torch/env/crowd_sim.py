@@ -349,25 +349,60 @@ def reset_batch(cfg: EnvConfig, cases, phase: str = "test",
 
 
 def reset_device(cfg: EnvConfig, n: int, generator=None, device=None,
-                 draws=None) -> SimState:
+                 draws=None, base: SimState = None) -> SimState:
     """n resets drawn on the device (``scenarios.generate_device``) as one
     state with a leading episode axis: the reference's ``reset_device``
     vmapped over n keys. Draws come from ``generator`` (on ``device``) or
     are handed in as ``draws``. Runs on CUDA unless ``device`` names
-    another device."""
-    device = resolve_device(device)
-    walls, wall_mask, door = walls_mod.build_walls(cfg)
-    walls_t = torch.as_tensor(walls, device=device)
-    wall_mask_t = torch.as_tensor(wall_mask, device=device)
+    another device.
+
+    ``base``, an earlier ``reset_device`` of n episodes of ``cfg``, gives
+    the fields that no draw decides (robot, walls, door, trackers), so
+    that the call copies nothing from the host and the host never waits
+    for the card; its human fields are drawn anew."""
+    if base is None:
+        device = resolve_device(device)
+        walls, wall_mask, door = walls_mod.build_walls(cfg)
+        walls_t = torch.as_tensor(walls, device=device)
+        wall_mask_t = torch.as_tensor(wall_mask, device=device)
+    else:
+        walls_t, wall_mask_t = base.walls[0], base.wall_mask[0]
     h_arrays = scenarios.generate_device(cfg, n, walls_t, wall_mask_t,
                                          generator, draws)
     h_pos, h_goal, h_theta, h_radius, h_v_pref, h_mask = h_arrays
-    one = _base_state(cfg, walls, wall_mask, door, [x[0] for x in h_arrays],
-                      device)
-    state = tree_map(lambda x: x.expand(n, *x.shape).clone(), one)
-    state = state._replace(
-        h_pos=h_pos, h_theta=h_theta,
-        h_goal=intermediate_goals(h_pos, h_goal, state.door),
+    if base is None:
+        one = _base_state(cfg, walls, wall_mask, door,
+                          [x[0] for x in h_arrays], device)
+        base = tree_map(lambda x: x.expand(n, *x.shape).clone(), one)
+    state = base._replace(
+        h_pos=h_pos, h_vel=torch.zeros_like(h_pos), h_theta=h_theta,
+        h_goal=intermediate_goals(h_pos, h_goal, base.door),
         h_final_goal=h_goal, h_radius=h_radius, h_v_pref=h_v_pref,
-        h_mask=h_mask)
+        h_mask=h_mask, human_times=torch.zeros_like(h_radius))
     return _dummy_prestep(state, cfg)
+
+
+# ---------------------------------------------------------------------------
+# observation helpers
+# ---------------------------------------------------------------------------
+
+def observable_human_states(state: SimState):
+    """(..., H, 5) [px, py, vx, vy, radius] and the (..., H) mask: the
+    reference's ObservableState list observation."""
+    return torch.cat([state.h_pos, state.h_vel, state.h_radius[..., None]],
+                     dim=-1), state.h_mask
+
+
+def full_human_states(state: SimState):
+    """(..., H, 9) [px, py, vx, vy, radius, gx, gy, v_pref, theta] and the
+    (..., H) mask."""
+    return torch.cat([state.h_pos, state.h_vel, state.h_radius[..., None],
+                      state.h_goal, state.h_v_pref[..., None],
+                      state.h_theta[..., None]], dim=-1), state.h_mask
+
+
+def robot_full_state(state: SimState):
+    """(..., 9) [px, py, vx, vy, radius, gx, gy, v_pref, theta]."""
+    return torch.cat([state.r_pos, state.r_vel, state.r_radius[..., None],
+                      state.r_goal, state.r_v_pref[..., None],
+                      state.r_theta[..., None]], dim=-1)

@@ -270,11 +270,16 @@ def generate_device(cfg: EnvConfig, n: int, walls, wall_mask, generator=None,
     rad = torch.zeros((n, H), **f32)
     theta = torch.zeros((n, H), **f32)
     mask = torch.zeros((n, H), dtype=torch.bool, device=dev)
-    robot_pos = torch.tensor([0.0, -cfg.circle_radius], **f32).expand(n, 1, 2)
-    robot_goal = torch.tensor([0.0, cfg.circle_radius], **f32).expand(n, 1, 2)
+    # constants are filled on the device, not copied from the host: a copy
+    # would make the host wait for the card (the DQN collect step draws
+    # fresh resets every step)
+    robot_pos = torch.zeros((n, 1, 2), **f32)
+    robot_pos[..., 1] = -cfg.circle_radius
+    robot_goal = torch.zeros((n, 1, 2), **f32)
+    robot_goal[..., 1] = cfg.circle_radius
     robot_rad = torch.full((n, 1), cfg.robot_radius, **f32)
     robot_mask = torch.ones((n, 1), dtype=torch.bool, device=dev)
-    radius = torch.tensor(cfg.human_radius, **f32)
+    radius = torch.full((), cfg.human_radius, **f32)
     discomfort = cfg.rewards.discomfort_dist
 
     for i in range(cfg.human_num):

@@ -83,7 +83,7 @@ def test_control_steps_match_reference():
     settings = IPM.realtime_settings(3, with_mid=True)
     assert settings.n_iter == settings_ref.n_iter == 15
     model = JMIDModel(ModelConfig(context_dim=128, tf_layer=2), device="cpu")
-    model.load_state_dict(convert.load_jmid_npz(WEIGHTS))
+    model.load_state_dict(convert.load_npz(WEIGHTS))
     gen = torch.Generator().manual_seed(0)
 
     act_ref = jax.jit(C_ref.campc_action,

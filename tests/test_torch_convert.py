@@ -1,12 +1,12 @@
 """The port's parameters in the reference's layout (``convert.flax_params``)
-and the port's ``.npz`` files (``convert.save_jmid_npz``).
+and the port's ``.npz`` files (``convert.save_npz``).
 
 - port -> Flax tree -> port is exact, and the tree has the reference's
   structure and shapes, leaf for leaf;
 - the JAX model given the port's parameters samples what the port samples
   from the same start noise (1e-4, as ``tests/test_torch_jmid.py``);
 - an ``.npz`` written by the port reads back exactly with
-  ``load_jmid_npz`` and serves through ``sicnav_diffusion.make_policy``.
+  ``load_npz`` and serves through ``sicnav_diffusion.make_policy``.
 """
 
 import jax
@@ -82,7 +82,7 @@ def test_npz_round_trip_serves(tmp_path):
     port = port_model(cfg_kw, 2)
     path = tmp_path / "w.npz"
     MID.save_checkpoint(str(path), port.state_dict())
-    sd = convert.load_jmid_npz(str(path))
+    sd = convert.load_npz(str(path))
     for k, v in port.state_dict().items():
         assert torch.equal(sd[k], v), k
     fresh = MID.JMIDModel(M.ModelConfig(**cfg_kw), device="cpu")

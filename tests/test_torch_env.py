@@ -152,12 +152,95 @@ def test_human_actions(policy):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL)
 
 
-@pytest.mark.parametrize("policy", ["sfm", "linear"])
-def test_unported_human_policies_raise(policy):
-    cfg_ref = T_ref.EnvConfig(human_policy=policy)
-    state = to_torch(CS_ref.reset_host(T_ref.EnvConfig(), 0))
-    with pytest.raises(NotImplementedError):
-        HP.human_actions(state, port_cfg(cfg_ref))
+def _sfm_cfg(scenario, robot_visible):
+    return T_ref.EnvConfig(scenario=scenario, human_policy="sfm",
+                           human_num=5, max_humans=6,
+                           robot_visible=robot_visible)
+
+
+def _near_walls(state):
+    """The reset moved so that every human stands within 0.5 m of a wall
+    (and of the robot), where the wall and agent pushes are large."""
+    walls = np.asarray(state.walls)[np.asarray(state.wall_mask)]
+    rng = np.random.default_rng(0)
+    H = state.h_pos.shape[0]
+    w = walls[rng.integers(0, len(walls), H)]
+    u = rng.uniform(0.2, 0.8, (H, 1))
+    pts = w[:, 0] + u * (w[:, 1] - w[:, 0])
+    normal = np.stack([-(w[:, 1, 1] - w[:, 0, 1]), w[:, 1, 0] - w[:, 0, 0]],
+                      -1)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    h_pos = (pts + rng.uniform(0.32, 0.5, (H, 1)) * normal).astype(np.float32)
+    h_vel = rng.uniform(-1, 1, (H, 2)).astype(np.float32)
+    return state._replace(h_pos=jnp.asarray(h_pos), h_vel=jnp.asarray(h_vel),
+                          r_pos=jnp.asarray(h_pos[0] + 0.4))
+
+
+@pytest.mark.parametrize("robot_visible", [True, False])
+@pytest.mark.parametrize("scenario", ["hallway_bottleneck", "circle_crossing"])
+def test_sfm_human_actions(scenario, robot_visible):
+    """SFM at a reset (one slot padded) and with the humans pressed against
+    the walls and the robot; in the hallway bottleneck walls 2 and up push
+    with the bottleneck gains."""
+    cfg_ref = _sfm_cfg(scenario, robot_visible)
+    cfg = port_cfg(cfg_ref)
+    state = CS_ref.reset_host(cfg_ref, 1)
+    assert not bool(state.h_mask.all())
+    states = [state]
+    if bool(np.asarray(state.wall_mask).any()):
+        states.append(_near_walls(state))
+    for s in states:
+        want = HP_ref.human_actions(s, cfg_ref)
+        got = HP.human_actions(to_torch(s), cfg)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL)
+    if scenario == "hallway_bottleneck":
+        plain = dataclasses.replace(cfg, scenario="hallway_static")
+        moved = HP.human_actions(to_torch(states[-1]), plain)
+        assert (moved - got).abs().max() > 1e-3
+
+
+def test_linear_human_actions():
+    cfg_ref = T_ref.EnvConfig(scenario="circle_crossing",
+                              human_policy="linear", human_num=4,
+                              max_humans=5)
+    state = CS_ref.reset_host(cfg_ref, 2)
+    want = HP_ref.human_actions(state, cfg_ref)
+    got = HP.human_actions(to_torch(state), port_cfg(cfg_ref))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+
+
+def test_sfm_and_linear_on_leading_axes():
+    """A stack of states gives each state's own actions."""
+    for policy, scenario in (("sfm", "hallway_bottleneck"),
+                             ("linear", "circle_crossing")):
+        cfg_ref = T_ref.EnvConfig(scenario=scenario, human_policy=policy,
+                                  human_num=3, max_humans=4)
+        cfg = port_cfg(cfg_ref)
+        batch = CS.reset_batch(cfg, [0, 1, 2], device="cpu")
+        got = HP.human_actions(batch, cfg)
+        for i in range(3):
+            want = HP_ref.human_actions(CS_ref.reset_host(cfg_ref, i), cfg_ref)
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
+                                       rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("policy,scenario", [("sfm", "hallway_bottleneck"),
+                                             ("linear", "circle_crossing")])
+def test_rollout_with_sfm_and_linear_humans(policy, scenario):
+    """A 10-step rollout_episode_stateful with each policy's humans."""
+    cfg_ref = T_ref.EnvConfig(scenario=scenario, human_policy=policy,
+                              human_num=4, max_humans=4,
+                              robot_kinematics="unicycle")
+    s_ref = CS_ref.reset_host(cfg_ref, 3)
+    f_ref, st_ref = RO_ref.rollout_episode_stateful(
+        s_ref, jnp.int32(0), _ref_step_fn, cfg_ref, 10)
+    f, st = RO.rollout_episode_stateful(to_torch(s_ref), 0, _port_step_fn,
+                                        port_cfg(cfg_ref), 10)
+    assert int(st_ref.steps) == 10
+    assert_tree_close(st, st_ref)
+    assert_tree_close(f, f_ref)
 
 
 def _actions(n, seed=0):

@@ -32,7 +32,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sicnav_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
 SCRIPTS = [ROOT / "scripts" / name for name in (
-    "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py")]
+    "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py",
+    "train_rl_torch.py")]
 PY_FILES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kde_kernel.py"] + \
     SCRIPTS
@@ -76,6 +77,15 @@ def test_scan_covers_training_and_evaluation():
         assert p.exists() and p.relative_to(ROOT).as_posix() in scanned
 
 
+def test_scan_covers_rl():
+    """The RL slice's modules are among the files scanned."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("rl/networks", "rl/dqn", "rl/imitation",
+                 "env/human_policies"):
+        assert f"sicnav_tpu_torch/{name}.py" in scanned, name
+    assert "scripts/train_rl_torch.py" in scanned
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import os\nfrom sicnav_tpu.ops import orca\n")
@@ -101,9 +111,22 @@ def test_package_holds_source_only():
 
 def test_entry_points_default_to_cuda():
     import eval_prediction_torch
+    import eval_suite_torch
     import train_jmid_torch
+    import train_rl_torch
+    from sicnav_tpu_torch.rl import dqn as D
+    from sicnav_tpu_torch.rl import imitation as IL
+    from sicnav_tpu_torch.rl import networks as N
     cfg = T.EnvConfig()
     calls = [
+        lambda: N.SARLNetwork(),
+        lambda: N.RGLNetwork(),
+        lambda: D.build_action_space(cfg, D.DQNConfig()),
+        lambda: D.ReplayBuffer.create(4, 3),
+        lambda: D.init_episode_rates(2),
+        lambda: IL.collect_demonstrations(cfg, IL.ILConfig(), n_episodes=1),
+        lambda: train_rl_torch.main([]),
+        lambda: eval_suite_torch.main(["--policy", "orca_plus"]),
         lambda: CS.reset_device(cfg, 2),
         lambda: train_jmid_torch.generate_sim_scenes(2, cfg),
         lambda: train_jmid_torch.main([]),

@@ -182,7 +182,7 @@ def test_hallway_checkpoint_full_width():
     # read with numpy alone, is the same predictor
     from_file = MID.JMIDModel(M.ModelConfig(**cfg_kw), joint=True,
                               device="cpu")
-    from_file.load_state_dict(convert.load_jmid_npz(WEIGHTS), strict=True)
+    from_file.load_state_dict(convert.load_npz(WEIGHTS), strict=True)
 
     ctx_ref = ref.apply(params, jb, method=MID_ref.JMIDModel.encode)
     ctx = port.encode(_to_torch(batch))

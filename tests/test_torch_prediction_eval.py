@@ -318,7 +318,7 @@ def test_hallway_checkpoint_scored_alike():
     cfg_kw = dict(context_dim=128, tf_layer=2)
     ref, params, port = _models(cfg_kw, ex[0], CKPT)
     from_file = MID.JMIDModel(M.ModelConfig(**cfg_kw), device="cpu")
-    from_file.load_state_dict(convert.load_jmid_npz(WEIGHTS))
+    from_file.load_state_dict(convert.load_npz(WEIGHTS))
     key = jax.random.PRNGKey(1)
     for one in (ex[0], ex[3], ex[5]):
         key, k = jax.random.split(key)

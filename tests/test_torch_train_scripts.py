@@ -1,6 +1,6 @@
 """Rehearsals of the port's training and prediction-evaluation entry
 points on the CPU, small: ``scripts/train_jmid_torch.py`` writes an
-``.npz`` that ``convert.load_jmid_npz`` and ``sicnav_diffusion.make_policy``
+``.npz`` that ``convert.load_npz`` and ``sicnav_diffusion.make_policy``
 take and ``scripts/eval_prediction_torch.py --full`` scores, and
 ``chip_smoke.phase_train`` runs its path (its CUDA-only checks run on the
 card)."""
@@ -46,7 +46,7 @@ def test_train_then_serve_then_score(tmp_path, capsys):
                           "non_finite"}
     assert (tmp_path / "log" / "jmid.jsonl").exists()
 
-    sd = convert.load_jmid_npz(str(out))
+    sd = convert.load_npz(str(out))
     cfg = M.ModelConfig(context_dim=32, tf_layer=1)
     model = MID.JMIDModel(cfg, device="cpu")
     model.load_state_dict(sd, strict=True)
