@@ -111,6 +111,29 @@ Phases, in order; each prints one line with its own seconds:
             step with SFM humans in the hallway bottleneck and one with
             linear humans in circle crossing, card vs CPU (RL_HUMANS_TOL).
             No kernel of the port is on this path (its launches: 0).
+12. imid    the iMID family. data: IMID_ROLLOUTS crowds synthesized on the
+            card by scripts/synthesize_ethucy_torch.py into ETH-format
+            files (seconds, example counts). serve: weights/
+            imid_eth_proof.npz (iMID, encoder 256, three layers of 512)
+            through eval_prediction_torch.py --method mid --full on the
+            first IMID_SERVE_SCENES windows of a held-out file, 20 samples:
+            min-of-20, most-likely (the joint ranking and each agent's
+            own), KDE-NLL, SADE / SFDE, non-finite counts, the kernel's
+            launches (two per scene, on 16 x 8 groups of 2 and 8 groups of
+            32) held against the plain version on each input, one scene's
+            sampling latency (median, p90); one scene card vs CPU (context
+            IMID_CTX_TOL, samples IMID_SAMPLE_TOL, each ranking's scores
+            to float64 within IMID_LIK_TOL of their terms' scale, and its
+            pick where the top two stand IMID_TIE apart, near ties
+            counted);
+            DDPM on the cosine schedule (flexibility 0.5, from zeros, the
+            noise handed in) card vs CPU. recipe: train_jmid_torch.py
+            --recipe ddim_p3_bs256_lr001_eth, one epoch at its widths and
+            batch 256 on the synthesized train files (step ms median and
+            p90), one profiled step (launches, busy share, peak memory),
+            its host syncs, one step card vs CPU (TRAIN_* bounds). Then a
+            class-conditioned JMID train step on the maneuver sim's typed
+            scenes and a CVAETrajectron loss and prediction, card vs CPU.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -211,6 +234,31 @@ LOOKAHEAD2_ENVS = 8
 # SFM or linear humans, card vs CPU
 RL_TRAIN_TOL = 1e-5
 RL_HUMANS_TOL = 1e-5
+# The imid phase: the shipped ETH iMID checkpoint served on ETH-format
+# data from the port's synthesizer (IMID_ROLLOUTS rollouts of 6 humans and
+# the robot, 50 steps at dt 0.4, 15 % held out), eval_prediction's slicing
+# (history 6, horizon 8, up to 16 agents), the first IMID_SERVE_SCENES
+# windows of the first held-out file; then one epoch of its recipe at its
+# widths and batch size on the rest.
+IMID_WEIGHTS = os.path.join(ROOT, "weights", "imid_eth_proof.npz")
+IMID_WIDTHS = dict(context_dim=256, tf_layer=3)
+IMID_RECIPE = "ddim_p3_bs256_lr001_eth"
+IMID_ROLLOUTS = 20
+IMID_ROLLOUTS_PER_FILE = 10
+IMID_SERVE_SCENES = 48
+IMID_SAMPLES = 20
+# its rankings: per agent 16 x 8 groups of 2 (at the recipe's horizon 12,
+# 16 x 12), jointly 8 (12) groups of 2 x 16
+IMID_KDE_SHAPES = [(128, 20, 2), (192, 20, 2), (8, 20, 32), (12, 20, 32)]
+# one scene card vs CPU: the encoder's context, the samples from one start
+# noise; each ranking's scores against float64 to IMID_LIK_TOL of their
+# terms' scale (the sum over the horizon of each step's largest |log
+# likelihood|; float32 rounds to about 3e-8 of it), its picks where the
+# float64 top-two gap exceeds IMID_TIE
+IMID_CTX_TOL = 1e-4
+IMID_SAMPLE_TOL = 1e-3
+IMID_LIK_TOL = 1e-6
+IMID_TIE = 1e-5
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -433,7 +481,7 @@ def phase_kernels(K):
     for G, S, D in KDE_SHAPES + [RAGGED_KDE_SHAPE, MAIN_KDE_SHAPE,
                                  IMID_KDE_SHAPE, PROTOCOL_KDE_SHAPE,
                                  PROTOCOL_IMID_SHAPE, BATCH_KDE_SHAPE,
-                                 *SWEEP_KDE_SHAPES]:
+                                 *SWEEP_KDE_SHAPES, *IMID_KDE_SHAPES]:
         y, z = kde_inputs(G, S, D, gen)
         err, share = check_kde(K, y, z)
         # the check must see the pair terms: most rows get >10 % from them
@@ -457,7 +505,8 @@ def phase_kernels(K):
     # the main path is now the batched protocol loop: its ranking's shape;
     # the one-episode loop's beside it
     per_shape = {}
-    for shape in (BATCH_KDE_SHAPE, PROTOCOL_KDE_SHAPE, *SWEEP_KDE_SHAPES):
+    for shape in (BATCH_KDE_SHAPE, PROTOCOL_KDE_SHAPE, *SWEEP_KDE_SHAPES,
+                  *IMID_KDE_SHAPES):
         ms, plain_ms = timings[shape]
         bound, bound_by = kde_bound_ms(*shape)
         per_shape["x".join(map(str, shape))] = {
@@ -1338,13 +1387,21 @@ def _state_close(name, got, want, tol, relative):
     return worst, where
 
 
-def phase_train_cross(model, batch, mcfg, tc):
+def phase_train_cross(model, batch, mcfg, tc, label="", end_to_end=True):
     """One train step on the card against the same step on the CPU: the
     trained weights, one stacked batch, t and eps drawn once, dropout 0.
     The attention key biases are held apart: a key bias adds one constant
     to each query's logits, which the softmax cancels, so its gradient is
     rounding alone on both sides and Adam steps it by up to lr on that
-    sign; it does not enter the model's function."""
+    sign; it does not enter the model's function.
+
+    The card's Adam step is also held, on every element, to a CPU Adam step
+    on the card's own clipped gradients from the same start. With
+    ``end_to_end`` false that is the parameters' gate, and the card-vs-CPU
+    parameter difference is printed, not held: a gradient element within
+    the gradient bound of zero has rounding's sign and size on each side,
+    and Adam's first step, lr g / (|g| + eps), turns that into up to lr
+    either way."""
     from sicnav_tpu_torch.diffusion import mid as MID
 
     cfg0 = dataclasses.replace(mcfg, dropout=0.0, rnn_dropout=0.0)
@@ -1352,11 +1409,15 @@ def phase_train_cross(model, batch, mcfg, tc):
     gen = torch.Generator().manual_seed(SEED + 3)
     t = torch.randint(1, 101, (B, A), generator=gen)
     eps = torch.randn((B, A, mcfg.horizon, 2), generator=gen)
+
+    def fresh(dev):
+        m = MID.JMIDModel(cfg0, joint=model.denoiser_joint, device=dev)
+        m.load_state_dict(model.state_dict())
+        return m, MID.make_train_state(m, tc, 1, init=False)
+
     out = {}
     for dev in ("cuda", "cpu"):
-        m = MID.JMIDModel(cfg0, device=dev)
-        m.load_state_dict(model.state_dict())
-        state = MID.make_train_state(m, tc, 1, init=False)
+        m, state = fresh(dev)
         loss = MID.train_step(m, state, batch.to_tensors(dev), t=t.to(dev),
                               eps=eps.to(dev))
         out[dev] = (loss.item(),
@@ -1371,17 +1432,36 @@ def phase_train_cross(model, batch, mcfg, tc):
     g_err, g_at = _state_close("gradients", g_gpu,
                                {k: g_cpu[k] for k in rest}, TRAIN_GRAD_TOL,
                                True)
-    p_err, p_at = _state_close("parameters", p_gpu,
-                               {k: p_cpu[k] for k in rest}, TRAIN_PARAM_TOL,
-                               False)
+    m, state = fresh("cpu")
+    for k, p in m.named_parameters():
+        p.grad = g_gpu[k].detach().cpu().clone()
+    state.optimizer.step()
+    o_err, o_at = _state_close("Adam on the card's gradients", p_gpu,
+                               m.state_dict(), TRAIN_PARAM_TOL, False)
+    if end_to_end:
+        p_err, p_at = _state_close("parameters", p_gpu,
+                                   {k: p_cpu[k] for k in rest},
+                                   TRAIN_PARAM_TOL, False)
+        params = (f"parameters after Adam max err {p_err:.3e} ({p_at}; "
+                  f"bound {TRAIN_PARAM_TOL})")
+    else:
+        diff = [(p_gpu[k].detach().cpu() - p_cpu[k]).abs() for k in rest]
+        p_err = max(d.max().item() for d in diff)
+        n_over = sum(int((d > TRAIN_PARAM_TOL).sum()) for d in diff)
+        params = (f"parameters after Adam, card vs CPU (not held) max err "
+                  f"{p_err:.3e}, {n_over} of "
+                  f"{sum(d.numel() for d in diff)} elements above "
+                  f"{TRAIN_PARAM_TOL}")
     l_err = abs(l_gpu - l_cpu)
-    log(f"  one train step, card vs CPU (batch of {B} scenes, dropout 0): "
+    log(f"  one {label}train step, card vs CPU (batch of {B} scenes, "
+        f"dropout 0): "
         f"loss {l_gpu:.7f} vs {l_cpu:.7f}, err {l_err:.3e} (bound "
         f"{TRAIN_LOSS_TOL}); gradients max err {g_err:.3e} of the tensor's "
-        f"largest entry ({g_at}; bound {TRAIN_GRAD_TOL}); parameters after "
-        f"Adam max err {p_err:.3e} ({p_at}; bound {TRAIN_PARAM_TOL}); key "
-        f"bias gradients up to {kb:.3e} ({kb / scale:.1e} of the largest "
-        f"gradient)")
+        f"largest entry ({g_at}; bound {TRAIN_GRAD_TOL}); {params}; the "
+        f"card's Adam step against a CPU Adam step on the card's gradients, "
+        f"every element, max err {o_err:.3e} ({o_at}; bound "
+        f"{TRAIN_PARAM_TOL}); key bias gradients up to {kb:.3e} "
+        f"({kb / scale:.1e} of the largest gradient)")
     assert l_err <= TRAIN_LOSS_TOL, l_err
     assert kb <= TRAIN_GRAD_TOL * scale, (kb, scale)
 
@@ -1750,18 +1830,16 @@ def rl_profile_serve(name, device, n_cases):
         f"({100 * busy / wall:.1f} %), {launches} device launches")
 
 
-def rl_sync_count(collect, train_once, states):
-    """Host syncs torch's sync debug mode reports over one collect step and
-    one train step: each read of the device warns "called a synchronizing
-    CUDA operation" once (the mode's own notice that it is a prototype is
-    not counted)."""
+def sync_count(fn):
+    """Host syncs torch's sync debug mode reports while ``fn()`` runs: each
+    read of the device warns "called a synchronizing CUDA operation" once
+    (the mode's own notice that it is a prototype is not counted)."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = collect(states)
-            train_once(out)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -1962,7 +2040,8 @@ def rl_train(device, il_episodes, il_epochs, n_envs, collect_steps, dqn,
             f"{wall:.2f} ms, device busy {busy:.2f} ms "
             f"({100 * busy / wall:.1f} %), {launches} device launches, peak "
             f"device memory (max_memory_allocated) {peak / 2**20:.1f} MiB")
-        syncs = rl_sync_count(collect_once, train_once, carry["states"])
+        syncs = sync_count(
+            lambda: train_once(collect_once(carry["states"])))
         log(f"  host syncs in one collect + train step (sync debug mode): "
             f"{len(syncs)} (the ORCA LP's one read): {syncs}")
         assert len(syncs) == 1, syncs
@@ -2090,6 +2169,384 @@ def phase_rl(device="cuda", n_cases=RL_CASES, il_episodes=IL_EPISODES,
     return history
 
 
+# ---------------------------------------------------------------------------
+# the imid phase: the ETH iMID predictor served and its recipe trained
+# ---------------------------------------------------------------------------
+
+def imid_data(device, n_rollouts, out_dir):
+    """ETH-format files from the port's synthesizer on ``device``:
+    {"train": [paths], "val": [paths]}."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import synthesize_ethucy_torch as SYN
+    args = SYN.parser().parse_args(
+        ["--out", os.path.join(out_dir, "eth"), "--n_scenes",
+         str(n_rollouts), "--rollouts_per_file", str(IMID_ROLLOUTS_PER_FILE),
+         "--seed", str(SEED)])
+    return SYN.synthesize(args, device)
+
+
+def _json_out(fn, argv):
+    """Run a script's main(argv), returning its standard output's JSON
+    lines (its own prints) as objects."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert fn(argv) == 0, argv
+    return [json.loads(x) for x in buf.getvalue().splitlines()
+            if x.startswith(("{", "["))]
+
+
+def _lik_and_pick(pred, amask, joint):
+    """Ranking scores (float32, the path's own function), each group's
+    pick (the last of the largest, as the stable sort serves it) and each
+    group's scale, the sum over the horizon of its largest |log
+    likelihood|: joint (1, S), (1,), (1,); per agent (A, S), (A,), (A,)."""
+    from sicnav_tpu_torch.ops.geometry import linspace
+    from sicnav_tpu_torch.ops import kde_cuda as K
+    fc = torch.where(amask[None, :, None, None], pred, torch.zeros_like(pred))
+    S, A, T, _ = fc.shape
+    if joint:
+        bw = torch.exp(linspace(math.log(0.01), math.log(0.1), T,
+                                device=fc.device))
+        ll = K.kde_loglik_fused(fc.permute(2, 0, 1, 3).reshape(T, S, 2 * A),
+                                bw)
+        lik = (ll - torch.logsumexp(ll, 1, keepdim=True)).sum(0)[None]
+        scale = ll.abs().amax(1).sum()[None]
+    else:
+        ll = K.kde_loglik_fused(fc.permute(1, 2, 0, 3).reshape(A * T, S, 2),
+                                0.05)
+        lik = (ll - torch.logsumexp(ll, 1, keepdim=True)).reshape(
+            A, T, S).sum(1)
+        scale = ll.abs().amax(1).reshape(A, T).sum(1)
+    return lik, torch.argsort(lik, dim=-1, stable=True)[:, -1], scale
+
+
+def imid_cross(model, ex, n_samples, seed):
+    """One scene on the card against the CPU: the encoder's context, the
+    samples from the same start noise, each ranking's scores on the card
+    against the CPU's float64 scores of the CPU's samples, and each
+    ranking's pick wherever the float64 top two stand more than IMID_TIE
+    apart (near ties are counted and printed)."""
+    from sicnav_tpu_torch.diffusion import mid as MID
+    cpu = MID.JMIDModel(model.cfg, joint=False, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    A, T = ex.agent_mask.shape[0], model.cfg.horizon
+    x_T = torch.randn((n_samples * A, T, 2),
+                      generator=torch.Generator().manual_seed(seed))
+    out = {}
+    for dev, m in (("cuda", model), ("cpu", cpu)):
+        b = ex.to_tensors(dev)
+        out[dev] = (m.encode(b).cpu(), m.sample(b, n_samples,
+                                                x_T=x_T.to(dev)).cpu())
+    ctx_err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    smp_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    assert ctx_err <= IMID_CTX_TOL, ctx_err
+    assert smp_err <= IMID_SAMPLE_TOL, smp_err
+    amask = torch.as_tensor(ex.agent_mask & ex.fut_mask.any(-1))
+    text = []
+    for joint in (True, False):
+        lik_gpu, pick_gpu, _ = _lik_and_pick(out["cuda"][1].cuda(),
+                                             amask.cuda(), joint)
+        _, pick_cpu, _ = _lik_and_pick(out["cpu"][1], amask, joint)
+        lik64, _, scale = _lik_and_pick(out["cpu"][1].double(), amask, joint)
+        top = torch.sort(lik64, dim=-1).values[:, -2:]
+        gap = top[:, 1] - top[:, 0]
+        groups = torch.ones_like(gap, dtype=torch.bool) if joint else amask
+        lik_err = ((lik_gpu.cpu().double() - lik64).abs().amax(-1) /
+                   scale)[groups].max().item()
+        assert lik_err <= IMID_LIK_TOL, (joint, lik_err)
+        decided = (gap > IMID_TIE) & groups
+        same = pick_gpu.cpu() == pick_cpu
+        assert bool(same[decided].all()), (joint, gap, pick_gpu, pick_cpu)
+        text.append(f"{'joint' if joint else 'per-agent'} ranking: scores "
+                    f"max err {lik_err:.3e} of their terms' scale (largest "
+                    f"{scale[groups].max().item():.4g}; bound "
+                    f"{IMID_LIK_TOL}); "
+                    f"{int(decided.sum())} of {int(groups.sum())} picks "
+                    f"decided (top-two gap > {IMID_TIE}) and equal, "
+                    f"{int((groups & ~decided).sum())} near ties (largest "
+                    f"gap {gap[groups].max().item():.3e}; picks equal on "
+                    f"{int(same[groups].sum())})")
+    log(f"  one scene ({int(ex.agent_mask.sum())} agents, {n_samples} "
+        f"samples), card vs CPU: context max err {ctx_err:.3e} (bound "
+        f"{IMID_CTX_TOL}), samples from the same start noise {smp_err:.3e} "
+        f"(bound {IMID_SAMPLE_TOL}); " + "; ".join(text))
+
+
+def imid_ddpm_cross(model, ex):
+    """DDPM on the cosine schedule, flexibility 0.5, from zeros
+    (bestof=False), with the per-step noise drawn once on the CPU: the
+    iMID denoiser's samples on the card against the CPU."""
+    from sicnav_tpu_torch.diffusion import diffusion as DF
+    from sicnav_tpu_torch.diffusion import mid as MID
+    cpu = MID.JMIDModel(model.cfg, joint=False, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    n, stride = 4, 2
+    A, T = ex.agent_mask.shape[0], model.cfg.horizon
+    steps = DF.nfe_count(100, stride)
+    noise = torch.randn((steps, n * A, T, 2),
+                        generator=torch.Generator().manual_seed(SEED + 5))
+    out = {}
+    for dev, m in (("cuda", model), ("cpu", cpu)):
+        sched = DF.make_schedule(100, "cosine", device=dev)
+        with torch.no_grad():
+            ctx = m.encode(ex.to_tensors(dev))
+            out[dev] = DF.sample(m.denoiser, sched, n, ctx, T,
+                                 sampling="ddpm", stride=stride,
+                                 flexibility=0.5, bestof=False,
+                                 noise=noise.to(dev)).cpu()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    scale = out["cpu"].abs().max().item()
+    assert bool(torch.isfinite(out["cuda"]).all())
+    assert err <= IMID_SAMPLE_TOL * max(1.0, scale), (err, scale)
+    log(f"  DDPM, cosine schedule, flexibility 0.5, bestof=False, {steps} "
+        f"steps with injected noise: card vs CPU max err {err:.3e} (bound "
+        f"{IMID_SAMPLE_TOL} x max(1, |x|max = {scale:.3f}))")
+
+
+def imid_class_cross(device):
+    """A class-conditioned JMID train step (num_node_types=3, the
+    maneuver sim's typed scenes, jmid_mc's widths) on the card against the
+    CPU."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import train_jmid_torch as TJ
+    from sicnav_tpu_torch.diffusion import data as D
+    from sicnav_tpu_torch.diffusion import mid as MID
+    from sicnav_tpu_torch.diffusion.models import ModelConfig
+    ex = TJ.generate_sim_scenes(4, TJ.sim_env_config("circle_crossing"),
+                                SEED, multi_class=True,
+                                class_mode="maneuver", device=device)
+    batch = D.stack_batches(ex[:8])
+    types = {D.NODE_TYPES[t]: int((batch.node_type == t).sum())
+             for t in range(3)}
+    mcfg = ModelConfig(context_dim=128, tf_layer=2, num_node_types=3)
+    model = make_model(mcfg, device)
+    tc = MID.TrainConfig(batch_size=8, seed=SEED)
+    log(f"  maneuver sim: {len(ex)} typed examples, the batch's agents by "
+        f"type {types}")
+    phase_train_cross(model, batch, mcfg, tc, label="class-conditioned ")
+
+
+def imid_cvae_cross(ex):
+    """CVAETrajectron (Flax's initializers from SEED): its training loss
+    and a prediction with sampled latents and GMM2D draws handed in, on
+    the card against the CPU."""
+    from sicnav_tpu_torch.diffusion import trajectron as TJ
+    from sicnav_tpu_torch.diffusion.models import ModelConfig, init_parameters
+    cfg = ModelConfig(context_dim=128, tf_layer=2)
+    out = {}
+    S, A, T = 6, ex.agent_mask.shape[0], cfg.horizon
+    gen = torch.Generator().manual_seed(SEED + 6)
+    z_draws = torch.randint(0, 25, (S, A, 1), generator=gen)
+    y_noise = torch.randn((S, A, T, 1, 2), generator=gen)
+    y_comp = torch.zeros((S, A, T), dtype=torch.long)
+    for dev in ("cuda", "cpu"):
+        net = TJ.CVAETrajectron(cfg, device="cpu")
+        init_parameters(net, torch.Generator().manual_seed(SEED))
+        net.to(dev)
+        b = ex.to_tensors(dev)
+        with torch.no_grad():
+            loss = net.train_loss(b).item()
+            pos, _ = net.predict(b, S, "sample", False, z_draws=z_draws.to(
+                dev), y_noise=y_noise.to(dev), y_comp=y_comp.to(dev))
+        out[dev] = (loss, pos.cpu())
+    l_err = abs(out["cuda"][0] - out["cpu"][0])
+    p_err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    assert l_err <= TRAIN_LOSS_TOL * max(1.0, abs(out["cpu"][0])), l_err
+    assert p_err <= IMID_SAMPLE_TOL, p_err
+    log(f"  CVAETrajectron (encoder 128, K = 25): train_loss "
+        f"{out['cuda'][0]:.6f} vs {out['cpu'][0]:.6f}, err {l_err:.3e} "
+        f"(bound {TRAIN_LOSS_TOL} x max(1, |loss|)); predict ({S} sampled "
+        f"latents, GMM2D draws handed in) positions max err {p_err:.3e} "
+        f"(bound {IMID_SAMPLE_TOL})")
+
+
+def phase_imid(K, device="cuda", weights=None, widths=None,
+               n_rollouts=IMID_ROLLOUTS, max_serve=IMID_SERVE_SCENES,
+               recipe_model=None, out_dir=None):
+    """The ETH iMID predictor: ETH-format data from the port's
+    synthesizer, imid_eth_proof served through eval_prediction_torch.py
+    --method mid --full with its KDE rankings on the kernel, card vs CPU,
+    the ETH iMID recipe's train steps, and the rest of the MID family card
+    vs CPU. ``weights``, ``widths``, ``n_rollouts``, ``max_serve``,
+    ``recipe_model`` and ``out_dir`` exist for the CPU rehearsal
+    (tests/test_torch_imid_phase.py); the CUDA-only checks run on the card.
+    Returns the kernel's launches on the served path."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import eval_prediction_torch as EP
+    import train_jmid_torch as TJ
+    from sicnav_tpu_torch.convert import load_npz
+    from sicnav_tpu_torch.diffusion import data as D
+    from sicnav_tpu_torch.diffusion import kde as KDE
+    from sicnav_tpu_torch.diffusion import mid as MID
+    from sicnav_tpu_torch.diffusion import recipes as R
+    from sicnav_tpu_torch.diffusion.models import ModelConfig
+
+    cuda = torch.device(device).type == "cuda"
+    weights = weights or IMID_WEIGHTS
+    widths = widths or IMID_WIDTHS
+    if out_dir is None:
+        out_dir = os.path.join(ROOT, "build", "imid")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # data
+    _sync(device)
+    t0 = time.perf_counter()
+    files = imid_data(device, n_rollouts, out_dir)
+    val = TJ.load_files(files["val"])                # history 6, horizon 8
+    recipe = R.get_recipe(IMID_RECIPE)
+    train = TJ.load_files(files["train"], recipe.dt, recipe.history_len,
+                          recipe.horizon)
+    log(f"  data: {n_rollouts} rollouts synthesized on {device} in "
+        f"{time.perf_counter() - t0:.2f} s ({len(files['train'])} train and "
+        f"{len(files['val'])} val files): {len(val)} val examples at "
+        f"history 6 / horizon 8 (eval_prediction's slicing), {len(train)} "
+        f"train examples at the recipe's {recipe.history_len} / "
+        f"{recipe.horizon}")
+    val_path = os.path.join(out_dir, "eth", "serve.txt")
+    # the served scenes: the first val file, cut to max_serve windows
+    with open(files["val"][0]) as f:
+        rows = f.read().splitlines()
+    frames = sorted({int(r.split()[0]) for r in rows})
+    keep = set(frames[:max_serve + 13])
+    with open(val_path, "w") as f:
+        f.write("\n".join(r for r in rows if int(r.split()[0]) in keep) +
+                "\n")
+
+    # serve
+    model = MID.JMIDModel(ModelConfig(**widths), joint=False, device=device)
+    model.load_state_dict(load_npz(weights), strict=True)
+    ranked = []
+
+    def kept(orig):
+        def fn(preds, bandwidth):
+            ranked.append((preds, bandwidth))
+            return orig(preds, bandwidth)
+        return fn
+
+    argv = ["--method", "mid", "--weights", weights, "--encoder_dim",
+            str(widths["context_dim"]), "--tf_layer",
+            str(widths["tf_layer"]), "--data_files", val_path, "--full",
+            "--num_samples", str(IMID_SAMPLES), "--seed", str(SEED)]
+    if not cuda:
+        argv += ["--device", "cpu"]
+    K.kde_loglik.launches = 0
+    restore = _wrap(KDE, "kde_loglik_fused", kept)
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        (scores,) = _json_out(EP.main, argv)
+        _sync(device)
+        serve_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = K.kde_loglik.launches
+    shapes = sorted({tuple(p.shape) for p, _ in ranked})
+    n = scores["num_scenes"]
+    bad = {k: v for k, v in scores.items() if k.endswith("_non_finite")}
+    log(f"  served {os.path.basename(weights)} on {n} scenes "
+        f"({IMID_SAMPLES} samples) in {serve_s:.2f} s: min-of-20 ADE "
+        f"{scores['ade']:.5f} FDE {scores['fde']:.5f}; most likely (joint "
+        f"ranking, the reference's sweep) ADE {scores['ml_ade']:.5f} FDE "
+        f"{scores['ml_fde']:.5f}; most likely per agent ADE "
+        f"{scores['ml_ade_per_agent']:.5f} FDE "
+        f"{scores['ml_fde_per_agent']:.5f}; KDE-NLL "
+        f"{scores['kde_nll']:.5f}; SADE {scores['sade']:.5f} SFDE "
+        f"{scores['sfde']:.5f}; non-finite scene metrics {bad or 0}; "
+        f"{launches} kde_loglik launches on {shapes}")
+    for k in ("ade", "fde", "sade", "sfde", "ml_ade", "ml_fde",
+              "ml_ade_per_agent", "ml_fde_per_agent"):
+        assert math.isfinite(scores[k]), (k, scores[k])
+    assert n > 0
+    ex = [e for e in TJ.load_files([val_path])
+          if (e.agent_mask & e.fut_mask.all(-1)).any()]
+    assert len(ex) == n, (len(ex), n)
+    # one scene's sampling latency, as --time measures it
+    b0 = ex[0].to_tensors(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    model.sample(b0, IMID_SAMPLES, generator=gen)
+    lat = []
+    for _ in range(20):
+        _sync(device)
+        t1 = time.perf_counter()
+        model.sample(b0, IMID_SAMPLES, generator=gen)
+        _sync(device)
+        lat.append(time.perf_counter() - t1)
+    log(f"  one scene's {IMID_SAMPLES}-sample inference (50 DDIM steps): "
+        f"median {statistics.median(lat) * 1e3:.2f} ms, p90 "
+        f"{pct(lat, 0.9) * 1e3:.2f} ms over 20 calls")
+    if cuda:
+        A = ex[0].agent_mask.shape[0]
+        assert launches == 2 * n, (launches, n)
+        assert shapes == sorted([(A * 8, IMID_SAMPLES, 2),
+                                 (8, IMID_SAMPLES, 2 * A)]), shapes
+        check_live_kde(K, ranked)
+        imid_cross(model, ex[0], IMID_SAMPLES, SEED + 1)
+        imid_ddpm_cross(model, ex[0])
+
+    # the recipe's train steps at its widths and batch size
+    name = IMID_RECIPE
+    if recipe_model is not None:
+        R.RECIPES[name] = dataclasses.replace(recipe, model=recipe_model)
+    ckpt = os.path.join(out_dir, "imid_recipe.npz")
+    step_s, trained = [], []
+
+    def timed(orig):
+        def fn(m, state, batch, *args, **kwargs):
+            _sync(device)
+            t1 = time.perf_counter()
+            out = orig(m, state, batch, *args, **kwargs)
+            _sync(device)
+            step_s.append(time.perf_counter() - t1)
+            trained.append((m, state, batch))
+            return out
+        return fn
+
+    argv = ["--recipe", name, "--epochs", "1", "--data_files",
+            *files["train"], "--val_data_files", *files["val"],
+            "--out", ckpt, "--seed", str(SEED)]
+    if not cuda:
+        argv += ["--device", "cpu"]
+    restore = _wrap(MID, "train_step", timed)
+    try:
+        t0 = time.perf_counter()
+        summary, history = _json_out(TJ.main, argv)[:2]
+        fit_s = time.perf_counter() - t0
+    finally:
+        restore()
+        R.RECIPES[name] = recipe
+    m, state, batch = trained[-1]
+    B, A = batch.agent_mask.shape
+    log(f"  recipe {name} (encoder {m.cfg.context_dim}, {m.cfg.tf_layer} "
+        f"layers, lr {recipe.train.lr}, batch {B} scenes of {A} agent "
+        f"slots, horizon {m.cfg.horizon}): {len(step_s)} train steps in "
+        f"{fit_s:.2f} s, step median {statistics.median(step_s) * 1e3:.2f} "
+        f"ms, p90 {pct(step_s, 0.9) * 1e3:.2f} ms; summary {summary}")
+    assert step_s and all(math.isfinite(h["loss"]) for h in history), history
+    if cuda:
+        profile_train_step(m, batch, state_tc(recipe, B))
+        syncs = sync_count(lambda: MID.train_step(
+            m, state, batch, torch.Generator(device="cuda").manual_seed(SEED)))
+        log(f"  host syncs in one recipe train step (sync debug mode): "
+            f"{len(syncs)} {sorted(set(syncs))}")
+        assert not syncs, syncs
+        numpy_batch = D.SceneBatch(*[None if x is None else x.cpu().numpy()
+                                     for x in batch])
+        # at this lr and batch, rounding-signed gradient elements move up
+        # to lr either way on the two sides (phase_train_cross)
+        phase_train_cross(m, numpy_batch, m.cfg, state_tc(recipe, B),
+                          label="iMID recipe ", end_to_end=False)
+        imid_class_cross(device)
+        imid_cvae_cross(ex[0])
+    return launches
+
+
+def state_tc(recipe, batch_size):
+    """The recipe's TrainConfig at the batch size the data reached."""
+    return dataclasses.replace(recipe.train, batch_size=batch_size)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2150,6 +2607,8 @@ def main():
         K.kde_loglik.launches = 0
         phase_rl()
         entry["launches_by_path"]["rl"] = K.kde_loglik.launches
+    with Phase("imid"):
+        entry["launches_by_path"]["imid"] = phase_imid(K)
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

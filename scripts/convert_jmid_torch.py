@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Write the trained hallway JMID predictor in the PyTorch port's layout.
+"""Write a trained JMID / iMID predictor in the PyTorch port's layout.
 
-    python scripts/convert_jmid_torch.py [--checkpoint checkpoints/jmid_hallway]
-                                         [--out weights/jmid_hallway.npz]
+    python scripts/convert_jmid_torch.py [--name jmid_hallway|imid_eth_proof]
+        [--checkpoint checkpoints/<name>] [--out weights/<name>.npz]
 
 Reads the Orbax checkpoint with the JAX package's own reader
-(``sicnav_tpu.diffusion.mid.load_checkpoint``, at the shipped widths
-``ModelConfig(context_dim=128, tf_layer=2)``), maps the Flax tree through
+(``sicnav_tpu.diffusion.mid.load_checkpoint``) at the checkpoint's widths
+(``MODELS``: the hallway JMID at ``ModelConfig(context_dim=128,
+tf_layer=2)``, the ETH iMID at ``context_dim=256, tf_layer=3``, its
+recipe's), maps the Flax tree through
 ``sicnav_tpu_torch.convert.jmid_state_dict`` and saves the state_dict as one
 ``.npz`` of float32 arrays, keyed by parameter name. The port reads it with
 numpy alone (``convert.load_npz``), so a machine without JAX, Flax or
@@ -25,11 +27,15 @@ sys.path.insert(0, ROOT)
 CHECKPOINT = os.path.join(ROOT, "checkpoints", "jmid_hallway")
 OUT = os.path.join(ROOT, "weights", "jmid_hallway.npz")
 WIDTHS = dict(context_dim=128, tf_layer=2)
+# shipped checkpoints the port serves: name -> (ModelConfig widths, joint)
+MODELS = {"jmid_hallway": (WIDTHS, True),
+          "imid_eth_proof": (dict(context_dim=256, tf_layer=3), False)}
 
 
-def reference_params(checkpoint=CHECKPOINT):
+def reference_params(checkpoint=CHECKPOINT, widths=WIDTHS, joint=True):
     """The checkpoint's Flax parameter tree as numpy, read by the JAX
-    package's reader into a template made at the shipped widths."""
+    package's reader into a template made at ``widths``
+    (``ModelConfig`` fields) for a JMID (``joint``) or iMID model."""
     import jax
     from sicnav_tpu.diffusion import forecaster as FC
     from sicnav_tpu.diffusion.mid import JMIDModel, load_checkpoint
@@ -37,7 +43,7 @@ def reference_params(checkpoint=CHECKPOINT):
     from sicnav_tpu.env import crowd_sim
     from sicnav_tpu.env.types import EnvConfig
 
-    model = JMIDModel(ModelConfig(**WIDTHS), joint=True)
+    model = JMIDModel(ModelConfig(**widths), joint=joint)
     cfg = EnvConfig()
     fcfg = FC.ForecasterConfig(dt=cfg.dt)
     batch = FC._scene_batch_from_hist(FC.init_state(cfg.max_humans, fcfg),
@@ -48,24 +54,30 @@ def reference_params(checkpoint=CHECKPOINT):
     return jax.tree.map(np.asarray, params)
 
 
-def convert(checkpoint=CHECKPOINT):
+def convert(checkpoint=CHECKPOINT, widths=WIDTHS, joint=True):
     """{parameter name: float32 array} of the port's JMIDModel."""
     from sicnav_tpu_torch.convert import jmid_state_dict
-    sd = jmid_state_dict(reference_params(checkpoint))
+    sd = jmid_state_dict(reference_params(checkpoint, widths, joint))
     return {k: v.numpy() for k, v in sd.items()}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--checkpoint", default=CHECKPOINT)
-    p.add_argument("--out", default=OUT)
+    p.add_argument("--name", default="jmid_hallway", choices=sorted(MODELS))
+    p.add_argument("--checkpoint", default=None,
+                   help="default: checkpoints/<name>")
+    p.add_argument("--out", default=None, help="default: weights/<name>.npz")
     args = p.parse_args(argv)
-    arrays = convert(args.checkpoint)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez_compressed(args.out, **arrays)
+    widths, joint = MODELS[args.name]
+    checkpoint = args.checkpoint or os.path.join(ROOT, "checkpoints",
+                                                 args.name)
+    out = args.out or os.path.join(ROOT, "weights", f"{args.name}.npz")
+    arrays = convert(checkpoint, widths, joint)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **arrays)
     n = sum(a.size for a in arrays.values())
-    print(f"{args.out}: {len(arrays)} arrays, {n} parameters, "
-          f"{os.path.getsize(args.out)} bytes")
+    print(f"{out}: {len(arrays)} arrays, {n} parameters, "
+          f"{os.path.getsize(out)} bytes")
     return 0
 
 

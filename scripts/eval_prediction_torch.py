@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Evaluate trajectory predictors with the PyTorch port (twin of
-``scripts/eval_prediction.py``): a JMID checkpoint of the port
-(``--method mid_jp --weights X.npz``) or the constant-velocity,
+``scripts/eval_prediction.py``): a JMID or iMID checkpoint of the port
+(``--method mid_jp|mid --weights X.npz``) or the constant-velocity,
 collision-fixed constant-velocity and standing baselines (``cv``,
 ``cv_fix``, ``standing``), with ADE / FDE / SADE / SFDE on the same
 scenes.
@@ -9,16 +9,22 @@ scenes.
     python scripts/eval_prediction_torch.py --method mid_jp \\
         --weights weights/jmid_hallway.npz --encoder_dim 128 --tf_layer 2 \\
         --scenario hallway_bottleneck [--full] [--time] [--device cpu]
+    python scripts/eval_prediction_torch.py --method mid \\
+        --weights weights/imid_eth_proof.npz --encoder_dim 256 --tf_layer 3 \\
+        --data_files data/eth_synth/val/*.txt --full
 
 Scenes are sim rollouts (``train_jmid_torch.generate_sim_scenes`` with
 seed ``--seed + 10000``, so they are not the training scenes) or
 ETH/UCY-style files (``--data_files``). ``--full`` adds the most-likely
 ADE / FDE (the KDE ranking, on the hand-written kernel on the card),
 KDE-NLL, the horizon-fraction ADEs, the obstacle-violation rate (hallway
-scenarios) and the NFE count; ``--time`` measures one scene's sampling
-latency instead. Prints one JSON object. Runs on the card unless
-``--device cpu``. ``--method mid`` and ``--num_node_types > 1`` need the
-iMID denoiser and the class-conditioned encoder, not ported yet.
+scenarios) and the NFE count; for ``--method mid`` also the most-likely
+ADE / FDE of each agent's own ranking (``ml_ade_per_agent``,
+``ml_fde_per_agent``: A x T KDE groups of two dimensions, beside the
+reference's joint ranking). ``--time`` measures one scene's sampling
+latency instead. ``--num_node_types > 1`` serves a class-conditioned
+checkpoint and adds the per-class ADE / FDE. Prints one JSON object. Runs
+on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -55,13 +61,13 @@ def _sync(device):
 
 
 def main(argv=None):
-    from train_jmid_torch import NOT_PORTED, generate_sim_scenes, \
-        load_files, sim_env_config
+    from train_jmid_torch import generate_sim_scenes, load_files, \
+        per_class_scores, sim_env_config
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--method", default="cv",
                    choices=["mid", "mid_jp", "cv", "cv_fix", "standing"])
-    p.add_argument("--weights", default=None,
+    p.add_argument("--weights", "--checkpoint", dest="weights", default=None,
                    help="the port's .npz checkpoint (train_jmid_torch.py)")
     p.add_argument("--data_files", nargs="*", default=[])
     p.add_argument("--n_scenes", type=int, default=32)
@@ -76,10 +82,6 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.method == "mid":
-        raise NotImplementedError(f"--method mid {NOT_PORTED}")
-    if args.num_node_types > 1:
-        raise NotImplementedError(f"--num_node_types > 1 {NOT_PORTED}")
 
     from sicnav_tpu_torch.convert import load_npz
     from sicnav_tpu_torch.device import resolve_device
@@ -102,10 +104,11 @@ def main(argv=None):
                                        args.seed + 10_000, device=device)
 
     model = None
-    if args.method == "mid_jp":
+    if args.method in ("mid", "mid_jp"):
         model = JMIDModel(ModelConfig(context_dim=args.encoder_dim,
-                                      tf_layer=args.tf_layer), joint=True,
-                          device=device)
+                                      tf_layer=args.tf_layer,
+                                      num_node_types=args.num_node_types),
+                          joint=args.method == "mid_jp", device=device)
         model.load_state_dict(load_npz(args.weights))
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -135,7 +138,8 @@ def main(argv=None):
                  torch.as_tensor(wm, device=device))
 
     scores = {k: [] for k in ("ade", "fde", "sade", "sfde")}
-    extra = {k: [] for k in ("ml_ade", "ml_fde", "kde_nll", "ade_one_fourth",
+    extra = {k: [] for k in ("ml_ade", "ml_fde", "ml_ade_per_agent",
+                             "ml_fde_per_agent", "kde_nll", "ade_one_fourth",
                              "ade_two_fourth", "ade_three_fourth",
                              "obs_violation_rate")}
     for ex in examples:
@@ -174,6 +178,10 @@ def main(argv=None):
     out = {"method": args.method, "num_scenes": len(scores["ade"]),
            "device": str(device)}
     out.update({k: float(np.mean(v)) for k, v in scores.items()})
+    if model is not None and args.num_node_types > 1:
+        out["per_class"] = per_class_scores(model, examples,
+                                            args.num_samples, device,
+                                            args.seed + 99)
     if args.full:
         for k, v in extra.items():
             if v:

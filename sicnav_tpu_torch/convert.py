@@ -1,5 +1,5 @@
-"""JMID, SARL and RGL parameters between the reference's Flax layout and
-the port's modules, and the port's ``.npz`` weight files.
+"""JMID / iMID, SARL and RGL parameters between the reference's Flax
+layout and the port's modules, and the port's ``.npz`` weight files.
 
 ``jmid_state_dict`` takes the reference's JMID parameter tree as nested
 dicts of numpy arrays (the ``params`` collection of
@@ -29,6 +29,10 @@ Layouts handled:
   concatenates them along the output axis.
 - ``LayerNorm`` keeps ``scale`` and ``bias`` (the port's LayerNorm uses
   Flax's epsilon 1e-6).
+- ``Embed`` keeps ``embedding`` (num, width), as ``nn.Embedding.weight``.
+- Denoiser submodules: ``tf_i`` -> ``tf.i``, TrajNet's ``csl_i`` ->
+  ``csl.i``, the flat MLPs' ``mlp/layer_i`` -> ``mlp.layers.i``; every
+  other ConcatSquash or Dense keeps its name.
 """
 
 from __future__ import annotations
@@ -79,30 +83,87 @@ def _concat_squash(sd, prefix, p):
         _dense(sd, f"{prefix}.{name}", p[name])
 
 
-def jmid_state_dict(params) -> dict:
-    """Reference JMID parameter tree (numpy) -> the port's state_dict."""
+def _transformer_layer(sd, prefix, p):
+    _attention(sd, prefix + ".attn", p["MultiHeadDotProductAttention_0"])
+    _layer_norm(sd, prefix + ".norm0", p["LayerNorm_0"])
+    _dense(sd, prefix + ".ff0", p["Dense_0"])
+    _dense(sd, prefix + ".ff1", p["Dense_1"])
+    _layer_norm(sd, prefix + ".norm1", p["LayerNorm_1"])
+
+
+def _encoder(sd, enc, prefix="encoder"):
+    _lstm(sd, f"{prefix}.history_lstm", enc["history_lstm"])
+    _lstm(sd, f"{prefix}.edge_lstm", enc["edge_lstm"])
+    att = enc["edge_attention"]
+    for i, name in enumerate(("w1", "w2", "v")):
+        _dense(sd, f"{prefix}.edge_attention.{name}", att[f"Dense_{i}"])
+    for name in ("class_embed", "edge_class_embed"):
+        if name in enc:
+            sd[f"{prefix}.{name}.weight"] = _t(enc[name]["embedding"])
+    if "class_film" in enc:
+        _dense(sd, f"{prefix}.class_film", enc["class_film"])
+
+
+def cvae_state_dict(params) -> dict:
+    """Reference ``trajectron.CVAETrajectron`` parameter tree (numpy) ->
+    the port's state_dict: the shared encoder, the future LSTM, the dense
+    heads and the GRU cell (Flax's ``in`` Dense is the port's ``in_``)."""
     if "params" in params:
         params = params["params"]
     sd = {}
-    enc = params["encoder"]
-    _lstm(sd, "encoder.history_lstm", enc["history_lstm"])
-    _lstm(sd, "encoder.edge_lstm", enc["edge_lstm"])
-    att = enc["edge_attention"]
-    for i, name in enumerate(("w1", "w2", "v")):
-        _dense(sd, f"encoder.edge_attention.{name}", att[f"Dense_{i}"])
+    for name, p in params.items():
+        if name == "encoder":
+            _encoder(sd, p)
+        elif name == "node_future_encoder":
+            _lstm(sd, name, p)
+        elif name == "decoder_rnn_cell":
+            for gate, q in p.items():
+                _dense(sd, f"{name}.{'in_' if gate == 'in' else gate}", q)
+        else:
+            _dense(sd, name, p)
+    return sd
 
-    den = params["denoiser"]
-    for name in ("concat1", "concat3", "concat4", "linear"):
-        _concat_squash(sd, f"denoiser.{name}", den[name])
-    n_layers = sum(1 for k in den if k.startswith("tf_"))
-    for i in range(n_layers):
-        p = den[f"tf_{i}"]
-        pre = f"denoiser.tf.{i}"
-        _attention(sd, pre + ".attn", p["MultiHeadDotProductAttention_0"])
-        _layer_norm(sd, pre + ".norm0", p["LayerNorm_0"])
-        _dense(sd, pre + ".ff0", p["Dense_0"])
-        _dense(sd, pre + ".ff1", p["Dense_1"])
-        _layer_norm(sd, pre + ".norm1", p["LayerNorm_1"])
+
+def map_encoder_state_dict(params) -> dict:
+    """Reference ``trajectron.CNNMapEncoder`` parameters -> the port's:
+    ``Conv_i`` kernels (kh, kw, in, out) become ``convs.i`` weights
+    (out, in, kh, kw); ``Dense_0`` becomes ``dense``."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    for name, p in params.items():
+        if name.startswith("Conv_"):
+            pre = f"convs.{name.split('_')[1]}"
+            sd[pre + ".weight"] = _t(np.asarray(p["kernel"]).transpose(
+                3, 2, 0, 1))
+            sd[pre + ".bias"] = _t(p["bias"])
+        else:
+            _dense(sd, "dense", p)
+    return sd
+
+
+def jmid_state_dict(params) -> dict:
+    """Reference JMID / iMID parameter tree (numpy) -> the port's
+    state_dict, for every denoiser of ``models.DIFFNETS`` and for
+    class-conditioned encoders."""
+    if "params" in params:
+        params = params["params"]
+    sd = {}
+    _encoder(sd, params["encoder"])
+    for name, p in params["denoiser"].items():
+        if name.startswith("tf_"):
+            _transformer_layer(sd, f"denoiser.tf.{name[3:]}", p)
+        elif name.startswith("csl_"):
+            _concat_squash(sd, f"denoiser.csl.{name[4:]}", p)
+        elif name == "mlp":
+            for layer, q in p.items():
+                _dense(sd, "denoiser.mlp." + (
+                    "out" if layer == "out" else
+                    f"layers.{layer.split('_')[1]}"), q)
+        elif "hyper_gate" in p:
+            _concat_squash(sd, f"denoiser.{name}", p)
+        else:
+            _dense(sd, f"denoiser.{name}", p)
     return sd
 
 
@@ -196,32 +257,54 @@ def _attention_tree(sd, prefix, n_heads):
 
 
 def flax_params(state_dict, n_heads: int = 4) -> dict:
-    """The port's JMID state_dict -> the reference's variables
+    """The port's JMID / iMID state_dict -> the reference's variables
     ``{"params": tree}`` as nested dicts of numpy arrays. ``n_heads`` is
     ``ModelConfig.n_heads``: the reference keeps the heads as an axis of
-    the attention kernels."""
+    the attention kernels (``TransformerLinear`` has 2 whatever the
+    configuration)."""
     sd = state_dict
     att = {f"Dense_{i}": _dense_tree(sd, f"encoder.edge_attention.{name}")
            for i, name in enumerate(("w1", "w2", "v"))}
     enc = {"history_lstm": _lstm_tree(sd, "encoder.history_lstm"),
            "edge_lstm": _lstm_tree(sd, "encoder.edge_lstm"),
            "edge_attention": att}
-    den = {name: {part: _dense_tree(sd, f"denoiser.{name}.{part}")
-                  for part in ("layer", "hyper_gate", "hyper_bias")}
-           for name in ("concat1", "concat3", "concat4", "linear")}
-    n_layers = len({k.split(".")[2] for k in sd if k.startswith("denoiser.tf.")})
-    for i in range(n_layers):
-        pre = f"denoiser.tf.{i}"
-        den[f"tf_{i}"] = {
-            "MultiHeadDotProductAttention_0": _attention_tree(
-                sd, pre + ".attn", n_heads),
-            "LayerNorm_0": {"scale": _np(sd[pre + ".norm0.scale"]),
-                            "bias": _np(sd[pre + ".norm0.bias"])},
-            "Dense_0": _dense_tree(sd, pre + ".ff0"),
-            "Dense_1": _dense_tree(sd, pre + ".ff1"),
-            "LayerNorm_1": {"scale": _np(sd[pre + ".norm1.scale"]),
-                            "bias": _np(sd[pre + ".norm1.bias"])},
-        }
+    for name in ("class_embed", "edge_class_embed"):
+        if f"encoder.{name}.weight" in sd:
+            enc[name] = {"embedding": _np(sd[f"encoder.{name}.weight"])}
+    if "encoder.class_film.weight" in sd:
+        enc["class_film"] = _dense_tree(sd, "encoder.class_film")
+
+    if "denoiser.ctx_up.weight" in sd:          # TransformerLinear
+        n_heads = 2
+    den = {}
+    for key in sd:
+        if not key.startswith("denoiser."):
+            continue
+        parts = key.split(".")[1:-1]            # module path, no leaf
+        if parts[0] == "tf":
+            name = f"tf_{parts[1]}"
+            if name not in den:
+                pre = f"denoiser.tf.{parts[1]}"
+                den[name] = {
+                    "MultiHeadDotProductAttention_0": _attention_tree(
+                        sd, pre + ".attn", n_heads),
+                    "LayerNorm_0": {"scale": _np(sd[pre + ".norm0.scale"]),
+                                    "bias": _np(sd[pre + ".norm0.bias"])},
+                    "Dense_0": _dense_tree(sd, pre + ".ff0"),
+                    "Dense_1": _dense_tree(sd, pre + ".ff1"),
+                    "LayerNorm_1": {"scale": _np(sd[pre + ".norm1.scale"]),
+                                    "bias": _np(sd[pre + ".norm1.bias"])},
+                }
+        elif parts[0] == "mlp":
+            layer = "out" if parts[1] == "out" else f"layer_{parts[2]}"
+            den.setdefault("mlp", {})[layer] = _dense_tree(
+                sd, "denoiser." + ".".join(parts))
+        elif parts[-1] in ("layer", "hyper_gate", "hyper_bias"):
+            name = f"csl_{parts[1]}" if parts[0] == "csl" else parts[0]
+            den.setdefault(name, {})[parts[-1]] = _dense_tree(
+                sd, "denoiser." + ".".join(parts))
+        else:
+            den[parts[0]] = _dense_tree(sd, f"denoiser.{parts[0]}")
     return {"params": {"encoder": enc, "denoiser": den}}
 
 

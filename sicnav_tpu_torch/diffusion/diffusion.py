@@ -1,5 +1,5 @@
-"""Diffusion core: variance schedule, the epsilon loss and the DDIM
-sampler (twin of ``sicnav_tpu/diffusion/diffusion.py``).
+"""Diffusion core: variance schedules, the epsilon loss and the DDPM /
+DDIM samplers (twin of ``sicnav_tpu/diffusion/diffusion.py``).
 
 All samples x agents are denoised as one batch; the reverse loop over t is
 a host loop. The schedule is computed in float64 with numpy and stored as
@@ -23,10 +23,22 @@ class VarianceSchedule(NamedTuple):
     num_steps: int
 
 
-def make_schedule(num_steps: int = 100, device=None) -> VarianceSchedule:
-    """The reference's linear schedule (beta from 1e-4 to 5e-2) on
-    ``device``; the cosine schedule is not ported yet."""
-    betas = np.concatenate([[0.0], np.linspace(1e-4, 5e-2, num_steps)])
+def make_schedule(num_steps: int = 100, mode: str = "linear",
+                  beta_1: float = 1e-4, beta_T: float = 5e-2,
+                  cosine_s: float = 8e-3, device=None) -> VarianceSchedule:
+    """The reference's schedule on ``device``: betas linear from beta_1 to
+    beta_T, or the cosine schedule (offset cosine_s, betas clipped at
+    0.999); beta_0 = 0 in front."""
+    if mode == "linear":
+        betas = np.linspace(beta_1, beta_T, num_steps)
+    elif mode == "cosine":
+        ts = np.arange(num_steps + 1) / num_steps + cosine_s
+        al = np.cos(ts / (1 + cosine_s) * np.pi / 2) ** 2
+        al = al / al[0]
+        betas = np.clip(1 - al[1:] / al[:-1], None, 0.999)
+    else:
+        raise ValueError(mode)
+    betas = np.concatenate([[0.0], betas])
     alphas = 1.0 - betas
     alpha_bars = np.exp(np.cumsum(np.log(alphas)))
     sigmas_flex = np.sqrt(betas)
@@ -78,47 +90,76 @@ def nfe_count(num_steps: int = 100, stride: int = 2) -> int:
     return len(np.arange(num_steps, 0, -stride))
 
 
+def _draw(shape, lead, generator, device):
+    """Standard normal noise of ``lead + shape``: from ``generator``, or
+    for one leading episode axis from a sequence of generators, one per
+    episode, each drawing what it would draw for its episode alone."""
+    if not lead:
+        return torch.randn(shape, generator=generator, device=device)
+    if (len(lead) != 1 or not isinstance(generator, (list, tuple))
+            or len(generator) != lead[0]):
+        raise ValueError(f"sample: episode axes {tuple(lead)} need one axis "
+                         "and one generator per episode")
+    return torch.stack([torch.randn(shape, generator=g, device=device)
+                        for g in generator])
+
+
 def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
-           context, horizon: int, point_dim: int = 2, stride: int = 2,
-           generator=None, x_T=None):
-    """Reverse diffusion with DDIM (the reference's default sampler; DDPM
-    is not ported yet): all samples x agents in one batch.
+           context, horizon: int, point_dim: int = 2,
+           sampling: str = "ddim", stride: int = 2, flexibility: float = 0.0,
+           bestof: bool = True, generator=None, x_T=None, noise=None):
+    """Reverse diffusion, all samples x agents in one batch.
 
     net_apply(x_t (*E, bs, horizon, point_dim), beta (*E, bs), ctx
     (*E, bs, F)) -> eps_hat, with context (*E, B, F) for B agents in each
     of the leading episode axes E (none for one scene), bs = n_samples * B
-    and ``ctx`` the context tiled sample major. ``x_T`` (*E, bs, horizon,
-    point_dim) replaces the drawn start noise (tests inject the
-    reference's); otherwise it is drawn with ``generator``, or for one
-    episode axis with a sequence of generators, one per episode, each
-    drawing what it would draw for its episode alone. Returns (*E,
-    n_samples, B, horizon, point_dim).
+    and ``ctx`` the context tiled sample major.
+
+    ``sampling`` is "ddim" (deterministic after the start) or "ddpm"
+    (``alphas[t]`` even when strided, as the reference; noise sigma z with
+    sigma mixing the two schedules' sigmas by ``flexibility``, and z drawn
+    only while t > 1). ``bestof`` starts from standard normal noise,
+    otherwise from zeros. ``x_T`` (*E, bs, horizon, point_dim) replaces the
+    drawn start noise and ``noise`` (steps, *E, bs, horizon, point_dim)
+    the per-step draws of DDPM (tests inject the reference's); what is not
+    given is drawn with ``generator`` (for one episode axis, a sequence of
+    generators, one per episode), the start first, then each step's.
+    Returns (*E, n_samples, B, horizon, point_dim).
     """
+    if sampling not in ("ddim", "ddpm"):
+        raise ValueError(sampling)
     *lead, B, _ = context.shape
     bs = n_samples * B
+    shape = (bs, horizon, point_dim)
     ctx = context.repeat(*(1,) * len(lead), n_samples, 1)
-    if x_T is None:
-        shape = (bs, horizon, point_dim)
-        if lead:
-            if (len(lead) != 1 or not isinstance(generator, (list, tuple))
-                    or len(generator) != lead[0]):
-                raise ValueError(f"sample: episode axes {tuple(lead)} need "
-                                 "one axis and one generator per episode")
-            x_T = torch.stack([torch.randn(shape, generator=g,
-                                           device=context.device)
-                               for g in generator])
-        else:
-            x_T = torch.randn(shape, generator=generator,
-                              device=context.device)
+    if not bestof:
+        if x_T is not None:
+            raise ValueError("sample: bestof=False starts from zeros; x_T "
+                             "must be None")
+        x_T = torch.zeros((*lead, *shape), device=context.device)
+    elif x_T is None:
+        x_T = _draw(shape, lead, generator, context.device)
     x_t = x_T.to(context.dtype)
 
     # per-step coefficients, elementwise as the reference computes them
     sqrt_ab = torch.sqrt(sched.alpha_bars)
     sqrt_1mab = torch.sqrt(1 - sched.alpha_bars)
-    for t in range(sched.num_steps, 0, -stride):
+    sigmas = (sched.sigmas_flex * flexibility +
+              sched.sigmas_inflex * (1 - flexibility))
+    for i, t in enumerate(range(sched.num_steps, 0, -stride)):
         t_next = max(t - stride, 0)
         beta = sched.betas[t].expand(*lead, bs)
         e_theta = net_apply(x_t, beta, ctx)
-        x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
-        x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
+        if sampling == "ddim":
+            x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
+            x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
+            continue
+        alpha = sched.alphas[t]
+        c0 = 1.0 / torch.sqrt(alpha)
+        c1 = (1 - alpha) / sqrt_1mab[t]
+        x_t = c0 * (x_t - c1 * e_theta)
+        if t > 1:
+            z = (noise[i] if noise is not None else
+                 _draw(shape, lead, generator, context.device))
+            x_t = x_t + sigmas[t] * z.to(x_t.dtype)
     return x_t.reshape(*lead, n_samples, B, horizon, point_dim)

@@ -1,7 +1,8 @@
-"""JMID model wrapper and training loop (twin of
-``sicnav_tpu/diffusion/mid.py``): an encoder + denoiser pair with encode /
-denoise / sample for inference, the epsilon-MSE training loss with
-joint-scene attention masks and masked agents, Adam with a staircase
+"""JMID / iMID model wrapper and training loop (twin of
+``sicnav_tpu/diffusion/mid.py``): an encoder + denoiser pair (any of
+``models.DIFFNETS``; the encoder class-conditioned with ``num_node_types
+> 1``) with encode / denoise / sample for inference, the epsilon-MSE
+training loss with joint-scene attention masks and masked agents, Adam with a staircase
 per-epoch learning-rate decay and global-norm clipping, early stopping on
 validation ADE, the full metric sweep and ``.npz`` checkpoints.
 
@@ -95,8 +96,15 @@ class JMIDModel(nn.Module):
         neigh = batch.hist.unsqueeze(-4).expand(*lead, A, A, T, D)
         target_pos = cur_pos[..., :, None, :].expand(*lead, A, A, 2)
         neigh_st = standardize_history(neigh, target_pos)
+        types = neigh_types = None
+        if self.cfg.num_node_types > 1:
+            # each agent is routed by its class; neighbour slot a carries
+            # agent a's class
+            types = torch.as_tensor(batch.types(), device=batch.hist.device)
+            neigh_types = types[..., None, :].expand(*lead, A, A)
         return self.encoder(hist_st, batch.hist_mask, neigh_st,
-                            batch.neighbor_mask, generator)
+                            batch.neighbor_mask, generator, types,
+                            neigh_types)
 
     @_inference
     def encode(self, batch: SceneBatch):
@@ -115,6 +123,8 @@ class JMIDModel(nn.Module):
 
     def _denoise(self, x, beta, context, batch: SceneBatch, scene_mask=None,
                  generator=None):
+        if not self.denoiser_joint:
+            return self.denoiser(x, beta, context, generator)
         if scene_mask is None:
             scene_mask = self.scene_attn_mask(batch)
         return self.denoiser(x, beta, context, scene_mask, generator)
@@ -122,7 +132,8 @@ class JMIDModel(nn.Module):
     @_inference
     def denoise(self, x, beta, context, batch: SceneBatch, scene_mask=None):
         """x (*B, S, A, T, 2); beta (*B, S, A); context (*B, S, A, F) ->
-        eps (*B, S, A, T, 2)."""
+        eps (*B, S, A, T, 2). A joint denoiser sees each sample's scene; a
+        non-joint one each agent's sequence alone."""
         return self._denoise(x, beta, context, batch, scene_mask)
 
     def forward(self, batch: SceneBatch, generator=None, t=None, eps=None):
@@ -132,39 +143,50 @@ class JMIDModel(nn.Module):
         the dropout masks are drawn from ``generator`` (t and eps unless
         given)."""
         context = self._encode(batch, generator)
-        scene_mask = self.scene_attn_mask(batch)
         loss_mask = ~(batch.fut_mask & batch.agent_mask[..., None])
+        if self.denoiser_joint:
+            scene_mask = self.scene_attn_mask(batch)
 
-        def net(x, beta, ctx):
-            # one sample per scene: the denoiser's sample axis
-            return self._denoise(x.unsqueeze(-4), beta.unsqueeze(-2),
-                                 ctx.unsqueeze(-3), batch, scene_mask,
-                                 generator).squeeze(-4)
+            def net(x, beta, ctx):
+                # one sample per scene: the denoiser's sample axis
+                return self._denoise(x.unsqueeze(-4), beta.unsqueeze(-2),
+                                     ctx.unsqueeze(-3), batch, scene_mask,
+                                     generator).squeeze(-4)
+        else:
+            def net(x, beta, ctx):
+                return self.denoiser(x, beta, ctx, generator)
 
         return DF.diffusion_loss(net, self.sched, batch.fut_vel, context,
                                  loss_mask, generator, t, eps)
 
     @_inference
     def sample(self, batch: SceneBatch, n_samples: int, generator=None,
-               x_T=None, stride: int = 2, dt: float = 0.25):
+               x_T=None, stride: int = 2, dt: float = 0.25,
+               sampling: str = "ddim", noise=None):
         """Forecast positions (*B, n_samples, A, T, 2). ``x_T``
-        (*B, n_samples*A, T, 2) replaces the start noise drawn from
-        ``generator`` (with B episode axes, one generator per episode, see
-        ``diffusion.sample``)."""
+        (*B, n_samples*A, T, 2) replaces the start noise and ``noise`` the
+        DDPM steps' draws (see ``diffusion.sample``), otherwise drawn from
+        ``generator`` (with B episode axes, one generator per episode). A
+        joint denoiser sees each sample's scene; a non-joint one takes the
+        (n_samples*A) sequences, sample major, as one batch."""
         context = self._encode(batch)
         *lead, A = batch.agent_mask.shape
-        scene_mask = self.scene_attn_mask(batch)
+        if self.denoiser_joint:
+            scene_mask = self.scene_attn_mask(batch)
 
-        def net(x, beta, ctx):
-            S = x.shape[-3] // A
-            out = self._denoise(x.reshape(*lead, S, A, *x.shape[-2:]),
-                                beta.reshape(*lead, S, A),
-                                ctx.reshape(*lead, S, A, -1), batch,
-                                scene_mask)
-            return out.reshape(x.shape)
+            def net(x, beta, ctx):
+                S = x.shape[-3] // A
+                out = self._denoise(x.reshape(*lead, S, A, *x.shape[-2:]),
+                                    beta.reshape(*lead, S, A),
+                                    ctx.reshape(*lead, S, A, -1), batch,
+                                    scene_mask)
+                return out.reshape(x.shape)
+        else:
+            net = self.denoiser
 
         vel = DF.sample(net, self.sched, n_samples, context, self.cfg.horizon,
-                        stride=stride, generator=generator, x_T=x_T)
+                        sampling=sampling, stride=stride,
+                        generator=generator, x_T=x_T, noise=noise)
         p0 = batch.hist[..., -1, 0:2]
         return integrate_velocity_samples(vel, p0[..., None, :, :], dt)
 
@@ -297,7 +319,13 @@ def eval_scene_full(model: JMIDModel, batch: SceneBatch, n_samples: int = 20,
     """The full metric sweep: min-of-k ADE / FDE, SADE / SFDE, most-likely
     ADE / FDE (the KDE ranking, on the hand-written kernel for CUDA
     tensors), KDE-NLL and the ADE at a quarter, half and three quarters of
-    the horizon. A dict of (*B) tensors."""
+    the horizon. A dict of (*B) tensors.
+
+    The most-likely sample is ranked jointly over the scene's agents (G =
+    T groups of dimension 2A), for every model, as the reference ranks it.
+    For a non-joint, iMID model the dict also holds ``ml_ade_per_agent`` / ``ml_fde_per_agent``: each agent's
+    own most likely sample, ``evaluation.most_likely_ade_fde(joint=False)``
+    (A * T groups of dimension 2, a second kernel launch)."""
     pred, gt = _scene_samples(model, batch, n_samples, generator, x_T, stride)
     amask, w, wsum = _valid_agents(batch)
     m = batch.fut_mask
@@ -312,7 +340,7 @@ def eval_scene_full(model: JMIDModel, batch: SceneBatch, n_samples: int = 20,
     def avg(x):
         return (x * w).sum(dim=-1) / wsum
 
-    return {
+    out = {
         "ade": avg(a_min), "fde": avg(f_min),
         "sade": sade, "sfde": sfde,
         "ml_ade": ml_ade, "ml_fde": ml_fde,
@@ -320,6 +348,11 @@ def eval_scene_full(model: JMIDModel, batch: SceneBatch, n_samples: int = 20,
         "ade_one_fourth": avg(fr1), "ade_two_fourth": avg(fr2),
         "ade_three_fourth": avg(fr3),
     }
+    if not model.denoiser_joint:
+        out["ml_ade_per_agent"], out["ml_fde_per_agent"] = \
+            EV.most_likely_ade_fde(pred, gt, agent_mask=amask, step_mask=m,
+                                   joint=False)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,12 @@
   layers conditioned on [beta, sin beta, cos beta, context] around a
   post-norm transformer over all (agent x horizon) tokens of a scene with a
   block-diagonal mask.
+- ``TransformerConcatLinear``: the iMID denoiser, the same layers with
+  attention over one agent's horizon tokens; and the rest of the
+  reference's denoiser family (``TrajNet``, ``TransformerLinear``,
+  ``SmallMLP`` / ``BigMLP``, the agent-token
+  ``JointInstanceTransformerConcatLinear`` v1-v3), resolved by name through
+  ``DIFFNETS`` / ``make_denoiser``; ``LinearDecoder``.
 
 Layers follow the reference's Flax definitions so that ``convert.py`` can
 load its parameters: Flax's LSTM gate order (i, f, g, o) with input kernels
@@ -16,7 +22,11 @@ as E[x^2] - E[x]^2). Dropout sits where Flax has it (the encoder's three
 after attention, inside and after the feed-forward) and acts in
 ``train()`` mode only, with its masks drawn from the ``generator`` handed
 to ``forward``, so that a seed decides a training run.
-Only the single-class encoder and the joint default denoiser are ported.
+
+With ``num_node_types > 1`` the encoder is class-conditioned, as the
+reference's: a 16-wide class embedding is appended to every history frame,
+the neighbours' class embedding to every edge frame, and a dense map of the
+class embedding is added to the context.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 from torch import nn
 
 ATTENTION_RADIUS = 3.0
+CLASS_EMBED_DIM = 16            # the class embeddings' width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,21 +126,47 @@ class TrajectronEncoder(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.rnn_dropout = cfg.rnn_dropout
-        if cfg.num_node_types > 1:
-            raise NotImplementedError(
-                "class-conditioned encoders (num_node_types > 1) are not "
-                "ported yet")
         H = cfg.enc_rnn_dim
-        self.history_lstm = LSTMEncoder(cfg.state_dim, H)
-        self.edge_lstm = LSTMEncoder(2 * cfg.state_dim, H)
+        in_dim = cfg.state_dim
+        self.classes = cfg.num_node_types > 1
+        if self.classes:
+            in_dim += CLASS_EMBED_DIM
+            self.class_embed = nn.Embedding(cfg.num_node_types,
+                                            CLASS_EMBED_DIM)
+            self.edge_class_embed = nn.Embedding(cfg.num_node_types,
+                                                 CLASS_EMBED_DIM)
+            self.class_film = nn.Linear(CLASS_EMBED_DIM, 2 * H)
+        self.history_lstm = LSTMEncoder(in_dim, H)
+        self.edge_lstm = LSTMEncoder(2 * in_dim, H)
         self.edge_attention = AdditiveAttention(H, H, H)
 
     def forward(self, hist, hist_mask, neigh_hist, neigh_mask,
-                generator=None):
+                generator=None, node_type=None, neigh_type=None):
+        """``node_type`` (...) and ``neigh_type`` (..., N) are class codes
+        (all 0 when None) for a class-conditioned encoder; a single-class
+        encoder ignores them."""
         rate = self.rnn_dropout if self.training else 0.0
 
         def drop(x):
             return dropout(x, rate, generator)
+
+        emb = None
+        if self.classes:
+            # every history frame carries the agent's class, every edge
+            # frame its neighbour's
+            if node_type is None:
+                node_type = torch.zeros(hist.shape[:-2], dtype=torch.long,
+                                        device=hist.device)
+            if neigh_type is None:
+                neigh_type = torch.zeros(neigh_hist.shape[:-2],
+                                         dtype=torch.long,
+                                         device=hist.device)
+            emb = self.class_embed(node_type.long())
+            hist = torch.cat([hist, emb[..., None, :].expand(
+                *hist.shape[:-1], CLASS_EMBED_DIM)], dim=-1)
+            n_emb = self.edge_class_embed(neigh_type.long())
+            neigh_hist = torch.cat([neigh_hist, n_emb[..., None, :].expand(
+                *neigh_hist.shape[:-1], CLASS_EMBED_DIM)], dim=-1)
 
         h_enc = drop(self.history_lstm(hist, hist_mask))
         # edge: sum-combine neighbour states over the slot axis
@@ -140,7 +177,11 @@ class TrajectronEncoder(nn.Module):
         # dynamic-edge mask: zero influence when no neighbours at all
         e_enc = drop(e_enc * neigh_mask.any(dim=-1)[..., None])
         e_infl, _ = self.edge_attention(e_enc[..., None, :], h_enc)
-        return torch.cat([drop(e_infl), h_enc], dim=-1)
+        ctx = torch.cat([drop(e_infl), h_enc], dim=-1)
+        if emb is not None:
+            # the class shifts the context, so the denoiser sees it too
+            ctx = ctx + self.class_film(emb)
+        return ctx
 
 
 class ConcatSquashLinear(nn.Module):
@@ -203,14 +244,15 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, mask, generator=None):
         """x (..., N, d); mask bool, True = attend, broadcastable to the
-        weights (..., heads, N, N)."""
+        weights (..., heads, N, N), or None (every token attends)."""
         *lead, N, _ = x.shape
         shape = (*lead, N, self.n_heads, self.head_dim)
         q = self.query(x).view(shape) / math.sqrt(self.head_dim)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
         w = torch.einsum("...qhd,...khd->...hqk", q, k)
-        w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
+        if mask is not None:
+            w = w.masked_fill(~mask, torch.finfo(w.dtype).min)
         w = torch.softmax(w, dim=-1)
         w = dropout(w, self.dropout_rate if self.training else 0.0,
                     generator, (*lead, 1, N, N))
@@ -249,6 +291,22 @@ def _time_context(beta, context):
     return torch.cat([time_emb, context[..., None, :]], dim=-1)
 
 
+class _PositionalTokens(nn.Module):
+    """Holds the positional encoding of ``n`` tokens of width ``d`` as a
+    buffer; longer sequences get theirs computed (the encoding of a
+    position does not depend on the sequence's length)."""
+
+    def __init__(self, n: int, d: int):
+        super().__init__()
+        self.register_buffer("pe", positional_encoding(n, d),
+                             persistent=False)
+
+    def forward(self, T: int):
+        if T <= self.pe.shape[0]:
+            return self.pe[:T]
+        return positional_encoding(T, self.pe.shape[1]).to(self.pe.device)
+
+
 class JointTransformerConcatLinear(nn.Module):
     """JMID denoiser: attention across all (agent x horizon) tokens of a
     scene with a block-diagonal mask."""
@@ -267,8 +325,7 @@ class JointTransformerConcatLinear(nn.Module):
                                           cfg.context_dim // 2)
         self.linear = ConcatSquashLinear(cfg.context_dim // 2, ctx_dim,
                                          cfg.pred_dim)
-        self.register_buffer("pe", positional_encoding(cfg.horizon, d),
-                             persistent=False)
+        self.pos = _PositionalTokens(cfg.horizon, d)
 
     def forward(self, x, beta, context, scene_mask, generator=None):
         """x (*B, S, A, T, 2); beta (*B, S, A); context (*B, S, A, F);
@@ -277,8 +334,7 @@ class JointTransformerConcatLinear(nn.Module):
         ``generator`` draws the dropout masks in train mode."""
         *lead, A, T, _ = x.shape
         ctx = _time_context(beta, context)                  # (..., A, 1, 3+F)
-        h = self.concat1(ctx, x)
-        h = h + self.pe[:T]
+        h = self.concat1(ctx, x) + self.pos(T)
         h = h.reshape(*lead, A * T, -1)
         # the mask broadcasts over the samples and the heads
         mask = scene_mask[..., None, None, :, :]
@@ -290,42 +346,266 @@ class JointTransformerConcatLinear(nn.Module):
         return self.linear(ctx, h)
 
 
+class TransformerConcatLinear(nn.Module):
+    """iMID denoiser: each agent on its own, its horizon as the tokens of
+    an unmasked post-norm transformer between ConcatSquash layers."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = 2 * cfg.context_dim
+        ctx_dim = 3 + 2 * cfg.enc_rnn_dim
+        self.concat1 = ConcatSquashLinear(cfg.pred_dim, ctx_dim, d)
+        self.tf = nn.ModuleList(
+            TransformerEncoderLayer(d, cfg.n_heads, 4 * cfg.context_dim,
+                                    cfg.dropout)
+            for _ in range(cfg.tf_layer))
+        self.concat3 = ConcatSquashLinear(d, ctx_dim, cfg.context_dim)
+        self.concat4 = ConcatSquashLinear(cfg.context_dim, ctx_dim,
+                                          cfg.context_dim // 2)
+        self.linear = ConcatSquashLinear(cfg.context_dim // 2, ctx_dim,
+                                         cfg.pred_dim)
+        self.pos = _PositionalTokens(cfg.horizon, d)
+
+    def forward(self, x, beta, context, generator=None):
+        """x (..., T, 2); beta (...); context (..., F): one sequence per
+        leading index."""
+        ctx = _time_context(beta, context)                  # (..., 1, 3+F)
+        h = self.concat1(ctx, x) + self.pos(x.shape[-2])
+        for layer in self.tf:
+            h = layer(h, None, generator)
+        h = self.concat3(ctx, h)
+        h = self.concat4(ctx, h)
+        return self.linear(ctx, h)
+
+
+class TrajNet(nn.Module):
+    """ConcatSquash MLP denoiser, pointwise over the horizon:
+    2 -> 128 -> 256 -> 512 -> 256 -> 128 -> 2 with leaky ReLU between the
+    layers, and the input added back with ``cfg.residual``."""
+    WIDTHS = (128, 256, 512, 256, 128)
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        ctx_dim = 3 + 2 * cfg.enc_rnn_dim
+        widths = self.WIDTHS + (cfg.pred_dim,)
+        ins = (cfg.pred_dim,) + widths[:-1]
+        self.csl = nn.ModuleList(ConcatSquashLinear(i, ctx_dim, o)
+                                 for i, o in zip(ins, widths))
+        self.residual = cfg.residual
+
+    def forward(self, x, beta, context, generator=None):
+        ctx = _time_context(beta, context)
+        h = x
+        for i, layer in enumerate(self.csl):
+            h = layer(ctx, h)
+            if i < len(self.csl) - 1:
+                h = nn.functional.leaky_relu(h)
+        return x + h if self.residual else h
+
+
+class TransformerLinear(nn.Module):
+    """128-wide transformer denoiser (3 layers, 2 heads): the context,
+    lifted to 128, rides as token 0 in front of the lifted horizon points
+    and is dropped before the output layer."""
+    WIDTH = 128
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        w = self.WIDTH
+        self.ctx_up = nn.Linear(3 + 2 * cfg.enc_rnn_dim, w)
+        self.y_up = nn.Linear(cfg.pred_dim, w)
+        self.tf = nn.ModuleList(TransformerEncoderLayer(w, 2, 4 * w,
+                                                        cfg.dropout)
+                                for _ in range(3))
+        self.linear = nn.Linear(w, cfg.pred_dim)
+        self.pos = _PositionalTokens(cfg.horizon + 1, w)
+
+    def forward(self, x, beta, context, generator=None):
+        ctx = _time_context(beta, context)
+        h = torch.cat([self.ctx_up(ctx), self.y_up(x)], dim=-2)
+        h = h + self.pos(h.shape[-2])
+        for layer in self.tf:
+            h = layer(h, None, generator)
+        return self.linear(h[..., 1:, :])
+
+
+class _FlatMLP(nn.Module):
+    """Shared body of SmallMLP and BigMLP: the whole horizon, the context
+    and beta (a raw feature, no sin / cos) in one vector, mapped back to the
+    horizon through dense layers with leaky ReLU."""
+
+    def __init__(self, cfg: ModelConfig, widths):
+        super().__init__()
+        n = cfg.horizon * cfg.pred_dim
+        ins = (n + 2 * cfg.enc_rnn_dim + 1,) + tuple(widths[:-1])
+        self.layers = nn.ModuleList(nn.Linear(i, o)
+                                    for i, o in zip(ins, widths))
+        self.out = nn.Linear(widths[-1], n)
+
+    def forward(self, x, beta, context, generator=None):
+        *lead, T, D = x.shape
+        h = torch.cat([x.reshape(*lead, T * D), context, beta[..., None]],
+                      dim=-1)
+        for layer in self.layers:
+            h = nn.functional.leaky_relu(layer(h))
+        return self.out(h).reshape(*lead, T, D)
+
+
+class SmallMLP(nn.Module):
+    """Three dense layers of 512."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.mlp = _FlatMLP(cfg, (512, 512, 512))
+
+    def forward(self, x, beta, context, generator=None):
+        return self.mlp(x, beta, context)
+
+
+class BigMLP(nn.Module):
+    """512, nine of 1024, 512."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.mlp = _FlatMLP(cfg, (512,) + (1024,) * 9 + (512,))
+
+    def forward(self, x, beta, context, generator=None):
+        return self.mlp(x, beta, context)
+
+
+class LinearDecoder(nn.Module):
+    """Plain latent -> horizon decoder: in_dim -> 64 -> 128 -> 256 -> 512
+    -> 256 -> 128 -> out_dim with leaky ReLU between."""
+    WIDTHS = (64, 128, 256, 512, 256, 128)
+
+    def __init__(self, out_dim: int = 12, in_dim: int = 32):
+        super().__init__()
+        ins = (in_dim,) + self.WIDTHS[:-1]
+        self.layers = nn.ModuleList(nn.Linear(i, o)
+                                    for i, o in zip(ins, self.WIDTHS))
+        self.out = nn.Linear(self.WIDTHS[-1], out_dim)
+
+    def forward(self, code):
+        h = code
+        for layer in self.layers:
+            h = nn.functional.leaky_relu(layer(h))
+        return self.out(h)
+
+
+class JointInstanceTransformerConcatLinear(nn.Module):
+    """Agent-token JMID denoisers (v1 / v2 / v3): each agent's embedded
+    horizon is one token of width horizon * 2 * context_dim and attention
+    runs across the scene's agents, with absent agents masked through the
+    scene mask's agent blocks. v2 adds a two-layer MLP before the
+    transformer, v3 one before and one after."""
+
+    def __init__(self, cfg: ModelConfig, variant: int = 1):
+        super().__init__()
+        d = 2 * cfg.context_dim
+        W = cfg.horizon * d
+        ctx_dim = 3 + 2 * cfg.enc_rnn_dim
+        self.variant = variant
+        self.concat1 = ConcatSquashLinear(cfg.pred_dim, ctx_dim, d)
+        self.pos = _PositionalTokens(cfg.horizon, d)
+        if variant >= 2:
+            self.mlp1_fc1 = nn.Linear(W, W)
+            self.mlp1_fc2 = nn.Linear(W, W)
+        self.tf = nn.ModuleList(
+            TransformerEncoderLayer(W, cfg.n_heads, 4 * cfg.context_dim,
+                                    cfg.dropout)
+            for _ in range(cfg.tf_layer))
+        if variant >= 3:
+            self.mlp2_fc1 = nn.Linear(W, W)
+            self.mlp2_fc2 = nn.Linear(W, W)
+        self.concat3 = ConcatSquashLinear(d, ctx_dim, cfg.context_dim)
+        self.concat4 = ConcatSquashLinear(cfg.context_dim, ctx_dim,
+                                          cfg.context_dim // 2)
+        self.linear = ConcatSquashLinear(cfg.context_dim // 2, ctx_dim,
+                                         cfg.pred_dim)
+
+    def forward(self, x, beta, context, scene_mask, generator=None):
+        """Shapes as ``JointTransformerConcatLinear.forward``."""
+        *lead, A, T, _ = x.shape
+        ctx = _time_context(beta, context)
+        h = self.concat1(ctx, x) + self.pos(T)
+        flat = h.reshape(*lead, A, -1)                      # agents as tokens
+        if self.variant >= 2:
+            flat = self.mlp1_fc2(torch.relu(self.mlp1_fc1(flat)))
+        # the agent blocks of the token mask, broadcast over samples, heads
+        mask = scene_mask[..., ::T, ::T][..., None, None, :, :]
+        for layer in self.tf:
+            flat = layer(flat, mask, generator)
+        if self.variant >= 3:
+            flat = self.mlp2_fc2(torch.relu(self.mlp2_fc1(flat)))
+        h = flat.reshape(*lead, A, T, -1)
+        h = self.concat3(ctx, h)
+        h = self.concat4(ctx, h)
+        return self.linear(ctx, h)
+
+
+# the reference's config.diffnet names -> (constructor, joint?)
+DIFFNETS = {
+    "TransformerConcatLinear": (TransformerConcatLinear, False),
+    "TrajNet": (TrajNet, False),
+    "TransformerLinear": (TransformerLinear, False),
+    "SmallMLP": (SmallMLP, False),
+    "BigMLP": (BigMLP, False),
+    "JointPredictionTransformerConcatLinear":
+        (JointTransformerConcatLinear, True),
+    "JointPredictionInstanceTransformerConcatLinear":
+        (lambda cfg: JointInstanceTransformerConcatLinear(cfg, 1), True),
+    "JointPredictionInstanceTransformerConcatLinearv2":
+        (lambda cfg: JointInstanceTransformerConcatLinear(cfg, 2), True),
+    "JointPredictionInstanceTransformerConcatLinearv3":
+        (lambda cfg: JointInstanceTransformerConcatLinear(cfg, 3), True),
+}
+
+
+def make_denoiser(cfg: ModelConfig, joint: bool):
+    """cfg.diffnet, or the mode's default (JMID's joint transformer, iMID's
+    TransformerConcatLinear), as (module, is_joint)."""
+    name = cfg.diffnet or ("JointPredictionTransformerConcatLinear" if joint
+                           else "TransformerConcatLinear")
+    ctor, is_joint = DIFFNETS[name]
+    return ctor(cfg), is_joint
+
+
 def init_parameters(module: nn.Module, generator=None):
-    """Flax's initializers in place: ``lecun_normal`` kernels (a normal cut
-    at two standard deviations, std sqrt(1 / fan_in) / 0.8796), orthogonal
-    recurrent LSTM kernels per gate, zero biases, LayerNorm scale 1 and
-    bias 0; drawn from ``generator``, a CPU generator."""
+    """Flax's initializers in place: ``lecun_normal`` dense and conv
+    kernels (a normal cut at two standard deviations, std
+    sqrt(1 / fan_in) / 0.8796), embeddings the same with fan_in their
+    width, orthogonal recurrent kernels per gate (LSTM and GRU), zero
+    biases, LayerNorm scale 1 and bias 0; drawn from ``generator``, a CPU
+    generator."""
     def draw(param, init, **kw):
         # drawn on the CPU, so one seed gives one model on every device
         x = torch.empty(param.shape)
         init(x, generator=generator, **kw)
         param.copy_(x)
 
+    def lecun(param, fan_in):
+        std = math.sqrt(1.0 / fan_in) / .87962566103423978
+        draw(param, nn.init.trunc_normal_, std=std, a=-2 * std, b=2 * std)
+
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / .87962566103423978
-                draw(m.weight, nn.init.trunc_normal_, std=std, a=-2 * std,
-                     b=2 * std)
-                if m.bias is not None:
-                    m.bias.zero_()
+                lecun(m.weight, m.in_features)
+            elif isinstance(m, nn.Conv2d):
+                lecun(m.weight, m.weight[0].numel())
+            elif isinstance(m, nn.Embedding):
+                lecun(m.weight, m.embedding_dim)
             elif isinstance(m, LayerNorm):
                 m.scale.fill_(1.0)
+            if isinstance(m, (nn.Linear, nn.Conv2d, LayerNorm)) and \
+                    m.bias is not None:
                 m.bias.zero_()
         for m in module.modules():
             if isinstance(m, LSTMEncoder):
                 for gate in m.w_h.weight.split(m.hidden):
                     draw(gate, nn.init.orthogonal_)
-
-
-def make_denoiser(cfg: ModelConfig, joint: bool):
-    """The mode's default denoiser as (module, is_joint). Only the joint
-    default (JMID) is ported so far."""
-    name = cfg.diffnet or ("JointPredictionTransformerConcatLinear" if joint
-                           else "TransformerConcatLinear")
-    if name != "JointPredictionTransformerConcatLinear":
-        raise NotImplementedError(f"denoiser {name!r} is not ported yet")
-    return JointTransformerConcatLinear(cfg), True
+            for kernel in getattr(m, "recurrent_kernels", lambda: ())():
+                draw(kernel, nn.init.orthogonal_)
 
 
 def standardize_history(hist_raw, current_pos):

@@ -22,6 +22,7 @@ from sicnav_tpu_torch.device import resolve_device
 from sicnav_tpu_torch.diffusion import forecaster as FC
 from sicnav_tpu_torch.diffusion import mid as MID
 from sicnav_tpu_torch.diffusion import models as M
+from sicnav_tpu_torch.diffusion import trajectron as TJ
 from sicnav_tpu_torch.env import crowd_sim as CS
 from sicnav_tpu_torch.env import types as T
 from sicnav_tpu_torch.mpc import campc as C
@@ -33,16 +34,23 @@ PKG = ROOT / "sicnav_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
 SCRIPTS = [ROOT / "scripts" / name for name in (
     "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py",
-    "train_rl_torch.py")]
+    "train_rl_torch.py", "synthesize_ethucy_torch.py",
+    "process_data_torch.py")]
+# imported only inside the function that needs it, never at import time
+CALL_TIME_ONLY = {"dill"}
 PY_FILES = sorted(PKG.rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kde_kernel.py"] + \
     SCRIPTS
 sys.path.insert(0, str(ROOT / "scripts"))
 
 
-def _imported_roots(path):
+def _imported_roots(path, module_level=False):
+    """The top-level packages ``path`` imports (with ``module_level``, only
+    those imported outside any function)."""
+    tree = ast.parse(path.read_text(), str(path))
+    nodes = _outside_functions(tree) if module_level else ast.walk(tree)
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    for node in nodes:
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -50,9 +58,32 @@ def _imported_roots(path):
     return roots
 
 
+def _outside_functions(node):
+    """``node`` and its descendants, not entering function bodies."""
+    yield node
+    for child in ast.iter_child_nodes(node):
+        if not isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.Lambda)):
+            yield from _outside_functions(child)
+
+
 @pytest.mark.parametrize("path", PY_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     assert not _imported_roots(path) & FORBIDDEN
+    assert not _imported_roots(path, module_level=True) & CALL_TIME_ONLY
+
+
+def test_scan_covers_the_mid_family():
+    """The MID family's modules and scripts are among the files scanned,
+    and dill is imported inside env_pkl's functions only."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("recipes", "trajectron", "env_pkl"):
+        assert f"sicnav_tpu_torch/diffusion/{name}.py" in scanned, name
+    for name in ("synthesize_ethucy_torch", "process_data_torch"):
+        assert f"scripts/{name}.py" in scanned, name
+    env_pkl = PKG / "diffusion" / "env_pkl.py"
+    assert "dill" in _imported_roots(env_pkl)
+    assert "dill" not in _imported_roots(env_pkl, module_level=True)
 
 
 def test_scan_covers_the_mpc():
@@ -112,6 +143,7 @@ def test_package_holds_source_only():
 def test_entry_points_default_to_cuda():
     import eval_prediction_torch
     import eval_suite_torch
+    import synthesize_ethucy_torch
     import train_jmid_torch
     import train_rl_torch
     from sicnav_tpu_torch.rl import dqn as D
@@ -130,7 +162,13 @@ def test_entry_points_default_to_cuda():
         lambda: CS.reset_device(cfg, 2),
         lambda: train_jmid_torch.generate_sim_scenes(2, cfg),
         lambda: train_jmid_torch.main([]),
+        lambda: train_jmid_torch.main(["--method", "mid"]),
         lambda: eval_prediction_torch.main([]),
+        lambda: eval_prediction_torch.main(["--method", "mid"]),
+        lambda: synthesize_ethucy_torch.main(["--out", str(ROOT / "build" /
+                                                            "never")]),
+        lambda: TJ.CVAETrajectron(M.ModelConfig(context_dim=8, enc_rnn_dim=4,
+                                                tf_layer=1)),
         lambda: CS.reset_host(cfg, 0),
         lambda: FC.init_state(cfg.max_humans, FC.ForecasterConfig()),
         lambda: MID.JMIDModel(M.ModelConfig(context_dim=8, enc_rnn_dim=4,

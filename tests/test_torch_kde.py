@@ -30,15 +30,16 @@ from sicnav_tpu.diffusion import kde as KDE_ref
 from sicnav_tpu.ops import kde_pallas as K_ref
 from sicnav_tpu_torch.diffusion import kde as KDE
 from sicnav_tpu_torch.ops import kde_cuda as K
-from tests.test_torch_kde_kernel import (PROTOCOL_SHAPES, SHAPES,
-                                         SWEEP_SHAPES, TOL,
+from tests.test_torch_kde_kernel import (IMID_SHAPES, PROTOCOL_SHAPES,
+                                         SHAPES, SWEEP_SHAPES, TOL,
                                          _assert_pairs_weigh, _forecasts,
                                          _inputs)
 
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("G,S,D", SHAPES + PROTOCOL_SHAPES + SWEEP_SHAPES)
+@pytest.mark.parametrize("G,S,D", SHAPES + PROTOCOL_SHAPES + SWEEP_SHAPES +
+                         IMID_SHAPES)
 def test_plain_matches_pallas_kernel(G, S, D):
     y, z = _inputs(G, S, D)
     want = K_ref._kde_loglik_pallas_impl(jnp.asarray(y), jnp.asarray(z),

@@ -32,6 +32,11 @@ BATCH_SHAPES = [(80, 48, 6)]
 # the validation sweep's joint ranking (eval_scene_full, 20 samples): 5
 # humans (train_jmid's sim scenes) and 3
 SWEEP_SHAPES = [(8, 20, 10), (8, 20, 6)]
+# the iMID path's rankings (eval_scene_full on ETH-format scenes of up to
+# 16 agents, 20 samples): per agent A x T groups of 2 at eval_prediction's
+# horizon 8 and the ETH recipes' 12, and the joint ranking's T groups of
+# 2A = 32; the reference runs its Pallas kernel at G >= 32
+IMID_SHAPES = [(128, 20, 2), (192, 20, 2), (8, 20, 32), (12, 20, 32)]
 # S > 64 and not a multiple of 32, odd D; S > 128 at an instantiated D; a
 # wide D in the masked instantiation; shared memory above the default 48 KB,
 # which the kernel takes only after opting in
@@ -107,7 +112,7 @@ def _cuda_or_skip():
 @pytest.mark.gpu
 @pytest.mark.parametrize("G,S,D", SHAPES + MAIN_PATH_SHAPES[1:] +
                          PROTOCOL_SHAPES + BATCH_SHAPES + SWEEP_SHAPES +
-                         KERNEL_SHAPES)
+                         IMID_SHAPES + KERNEL_SHAPES)
 def test_cuda_kernel_matches_plain(G, S, D):
     _cuda_or_skip()
     y, z = _inputs(G, S, D)

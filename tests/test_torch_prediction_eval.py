@@ -189,6 +189,41 @@ def test_most_likely_ade_fde(seed):
         close(got[1], want[1])
 
 
+@pytest.mark.parametrize("seed", [4, 6, 9])
+def test_most_likely_ade_fde_per_agent(seed):
+    """The iMID ranking (joint=False) at its ETH shape: 16 agents x 8 steps
+    = 128 groups of 20 samples in 2 dimensions, the shape at which the
+    reference runs its Pallas kernel. Clustered samples whose every agent's
+    most likely sample stands apart from its second by more than the
+    kernel's tolerance in the reference's ranking (checked)."""
+    fc = _forecasts(seed, False, S=20, H=16, sizes=(4, 2))
+    S, H, T, _ = fc.shape
+    preds = jnp.transpose(jnp.asarray(fc), (1, 2, 0, 3)).reshape(H * T, S, 2)
+    assert preds.shape == (128, 20, 2)
+    ll = K_ref.kde_loglik_fused(preds, 0.05)
+    lik = np.sort(np.asarray((ll - jax.scipy.special.logsumexp(
+        ll, axis=1, keepdims=True)).reshape(H, T, S).sum(1)), -1)
+    assert np.isfinite(lik).all()
+    gap = lik[:, -1] - lik[:, -2]
+    assert (gap > KDE_TOL * np.maximum(1.0, np.abs(lik[:, -2:]).max(-1))
+            ).all()
+    rng = np.random.default_rng(seed)
+    gt = fc.mean(0) + rng.normal(0, 0.1, (H, T, 2)).astype(np.float32)
+    amask = np.ones(H, bool)
+    amask[[3, 11]] = False
+    smask = np.ones((H, T), bool)
+    smask[2, 5:] = False
+    for sm in (None, smask):
+        got = EV.most_likely_ade_fde(
+            t(fc), t(gt), agent_mask=t(amask),
+            step_mask=None if sm is None else t(sm), joint=False)
+        want = EV_ref.most_likely_ade_fde(
+            jnp.asarray(fc), jnp.asarray(gt), agent_mask=amask,
+            step_mask=sm, joint=False)
+        close(got[0], want[0])
+        close(got[1], want[1])
+
+
 def test_baselines():
     rng = np.random.default_rng(0)
     pos = rng.uniform(-1, 1, (6, 2)).astype(np.float32)

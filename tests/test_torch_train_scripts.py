@@ -5,6 +5,7 @@ take and ``scripts/eval_prediction_torch.py --full`` scores, and
 ``chip_smoke.phase_train`` runs its path (its CUDA-only checks run on the
 card)."""
 
+import dataclasses
 import json
 import os
 import sys
@@ -87,15 +88,126 @@ def test_baselines_score(method, capsys):
     assert 0 < scores["ade"] < scores["fde"] + 1.0
 
 
-def test_unported_options_raise():
-    for argv in (["--method", "mid"], ["--multi_class"],
-                 ["--class_mode", "maneuver"], ["--no_dispatch"],
-                 ["--recipe", "ddim_p3_bs256_lr001_eth"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            train_jmid_torch.main(["--device", "cpu"] + argv)
-    for argv in (["--method", "mid"], ["--num_node_types", "3"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eval_prediction_torch.main(["--device", "cpu"] + argv)
+TRAIN_ARGS = ["--device", "cpu", "--n_scenes", "4", "--epochs", "1",
+              "--encoder_dim", "16", "--tf_layer", "1"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--method", "mid"],
+    ["--multi_class"],
+    ["--multi_class", "--class_mode", "maneuver"],
+    ["--multi_class", "--no_dispatch"],
+], ids=["imid", "multi_class", "maneuver", "no_dispatch"])
+def test_train_options_run(argv, tmp_path, capsys):
+    """Every option of train_jmid.py trains on the CPU: iMID, and the
+    multi-class sim with and without the class-conditioned encoder, each
+    with its per-class validation scores."""
+    out = tmp_path / "m.npz"
+    assert train_jmid_torch.main(TRAIN_ARGS + ["--out", str(out)] +
+                                 argv) == 0
+    lines = _json_lines(capsys.readouterr().out)
+    assert lines[0]["epochs_run"] == 1
+    sd = convert.load_npz(str(out))
+    classes = "--multi_class" in argv and "--no_dispatch" not in argv
+    assert ("encoder.class_embed.weight" in sd) == classes
+    cfg = M.ModelConfig(context_dim=16, tf_layer=1,
+                        num_node_types=3 if classes else 1)
+    model = MID.JMIDModel(cfg, joint="--method" not in argv, device="cpu")
+    model.load_state_dict(sd, strict=True)
+    if "--multi_class" in argv:
+        per_class = lines[-1]["per_class"]
+        assert per_class["PEDESTRIAN"]["n"] > 0
+        assert per_class["ROBOT"]["n"] > 0
+        for v in per_class.values():
+            assert v["n"] == 0 or np.isfinite(v["ade"])
+
+
+@pytest.mark.parametrize("class_mode", ["speed", "maneuver"])
+def test_multi_class_sim_scenes(class_mode):
+    """Typed sim scenes: bicycles among the humans, the robot the last
+    track; bicycles faster (speed) or at the same speed (maneuver)."""
+    from sicnav_tpu_torch.diffusion import data as D
+    cfg = train_jmid_torch.sim_env_config("circle_crossing")
+    ex = train_jmid_torch.generate_sim_scenes(
+        6, cfg, seed=1, multi_class=True, class_mode=class_mode,
+        device="cpu")
+    types = np.stack([e.node_type for e in ex])
+    present = np.stack([e.agent_mask for e in ex])
+    assert types.shape[1] == cfg.max_humans + 1
+    assert (types[:, -1] == D.NODE_TYPES.index("ROBOT")).all()
+    assert (types[:, :-1] != D.NODE_TYPES.index("ROBOT")).all()
+    assert (types[present] == D.NODE_TYPES.index("BICYCLE")).any()
+    plain = train_jmid_torch.generate_sim_scenes(6, cfg, seed=1,
+                                                 device="cpu")
+    assert plain[0].hist.shape[0] == cfg.max_humans
+    assert all((e.node_type == 0).all() for e in plain)
+
+
+@pytest.fixture(scope="module")
+def eth_files(tmp_path_factory):
+    import synthesize_ethucy_torch as SYN
+    out = tmp_path_factory.mktemp("eth")
+    args = SYN.parser().parse_args(["--out", str(out), "--n_scenes", "4",
+                                    "--rollouts_per_file", "2",
+                                    "--steps", "32", "--val_fraction",
+                                    "0.5", "--hard"])
+    return SYN.synthesize(args, "cpu")
+
+
+def test_recipe_on_eth_files_then_imid_scores(eth_files, tmp_path, capsys,
+                                             monkeypatch):
+    """The ETH iMID recipe on synthesized ETH-format files: the recipe's
+    history 7, horizon 12, frame period, learning rate and batch size (as
+    far as the data reaches), at small widths here (the recipe's own, 256
+    wide, train on the card in chip_smoke.py's imid phase); then the
+    weights served by eval_prediction_torch.py --method mid --full at
+    history 6, horizon 8, with the per-agent ranking beside the joint
+    one."""
+    from sicnav_tpu_torch.diffusion import recipes as R
+    name = "ddim_p3_bs256_lr001_eth"
+    recipe = R.get_recipe(name)
+    monkeypatch.setitem(R.RECIPES, name, dataclasses.replace(
+        recipe, model=dataclasses.replace(recipe.model, context_dim=16,
+                                          tf_layer=1)))
+    out = tmp_path / "imid.npz"
+    assert train_jmid_torch.main(
+        ["--device", "cpu", "--recipe", name, "--epochs", "1",
+         "--data_files", *eth_files["train"], "--val_data_files",
+         *eth_files["val"], "--out", str(out)]) == 0
+    captured = capsys.readouterr()
+    counts = _json_lines(captured.err)[0]
+    assert counts["train_batches"] == 1          # min(256, examples)
+    assert counts["train_examples"] < recipe.train.batch_size
+    summary = _json_lines(captured.out)[0]
+    assert summary["epochs_run"] == 1
+    model = MID.JMIDModel(R.get_recipe(name).model, joint=False,
+                          device="cpu")
+    model.load_state_dict(convert.load_npz(str(out)), strict=True)
+    assert eval_prediction_torch.main(
+        ["--device", "cpu", "--method", "mid", "--checkpoint", str(out),
+         "--encoder_dim", "16", "--tf_layer", "1", "--data_files",
+         *eth_files["val"], "--full", "--num_samples", "6"]) == 0
+    (scores,) = _json_lines(capsys.readouterr().out)
+    assert scores["num_scenes"] > 0 and scores["nfe"] == 50
+    for k in ("ade", "fde", "ml_ade", "ml_ade_per_agent", "ml_fde_per_agent",
+              "kde_nll"):
+        assert np.isfinite(scores[k]), k
+
+
+def test_eval_class_conditioned_per_class(tmp_path, capsys):
+    """eval_prediction_torch.py --num_node_types 3 serves a
+    class-conditioned checkpoint and breaks the scores down per class."""
+    out = tmp_path / "mc.npz"
+    assert train_jmid_torch.main(TRAIN_ARGS + ["--multi_class", "--out",
+                                               str(out)]) == 0
+    capsys.readouterr()
+    assert eval_prediction_torch.main(
+        ["--device", "cpu", "--method", "mid_jp", "--num_node_types", "3",
+         "--weights", str(out), "--encoder_dim", "16", "--tf_layer", "1",
+         "--n_scenes", "2", "--num_samples", "4"]) == 0
+    (scores,) = _json_lines(capsys.readouterr().out)
+    assert set(scores["per_class"]) == {"PEDESTRIAN", "BICYCLE", "ROBOT"}
+    assert scores["per_class"]["PEDESTRIAN"]["n"] > 0
 
 
 def test_chip_smoke_train_rehearsal(tmp_path):
