@@ -135,6 +135,30 @@ Phases, in order; each prints one line with its own seconds:
             class-conditioned JMID train step on the maneuver sim's typed
             scenes and a CVAETrajectron loss and prediction, card vs CPU.
 
+13. observe the observation path, the plain controllers, the solver's
+            introspection and the streaming controller, at the protocol.
+            plain: plain SICNav-p through scripts/eval_suite_torch.py's
+            config functions (--policy campc --privileged: campc.make_policy(
+            batch=True), the RA-L robot, wall margin 0.05, door-yield off)
+            under OBSERVE_NOISE observation noise with the Kalman filter
+            inside it, cases 0..BATCH-1 as one batch for
+            OBSERVE_PLAIN_STEPS timed steps at IPMSettings(n_iter=30) and
+            a third, profiled one (launches, busy share): MPC ms per
+            batched step (median, p90), the cascade's accept share; the
+            float64 gate of the batch phase (batch_gate) on the filtered
+            states of GATE_CASES cases at the last timed step. fused:
+            the fused controller through the same script and wrappers,
+            OBSERVE_FUSED_STEPS batched steps; the kernel launched once per step on (BATCH * 8, 48, 6)
+            and held against its plain version on each input. debug:
+            introspection.debug_solve_report of case 0's plain NLP at that
+            step on the card and on the CPU from the same guess: the
+            trace's first iteration within OBSERVE_DEBUG_TOL, the worst
+            constraint class equal. stream: scripts/
+            real_robot_loop_torch.py on host case STREAM_CASE for
+            STREAM_SECONDS of wall clock at 10 Hz (its JSON line: ticks,
+            latency p50 / p95, deadline misses); the kernel launched once
+            per tick and once for the warm-up step.
+
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
 check raises, so the script exits non-zero and prints no result; without a
@@ -259,6 +283,17 @@ IMID_CTX_TOL = 1e-4
 IMID_SAMPLE_TOL = 1e-3
 IMID_LIK_TOL = 1e-6
 IMID_TIE = 1e-5
+# The observe phase: the observation path and the plain controller at the
+# protocol (robustness table, BENCH_EXTRA.md:1447-1451): sigma = 0.05
+# observation noise with the constant-velocity Kalman filter inside it,
+# cases 0..BATCH-1 as one batch; the streaming controller for a short
+# wall-clock replay. Cut to a few steps of 122 each.
+OBSERVE_NOISE = 0.05
+OBSERVE_PLAIN_STEPS = 2     # timed batched plain SICNav-p steps (+ 1 profiled)
+OBSERVE_FUSED_STEPS = 2     # batched fused steps
+OBSERVE_DEBUG_TOL = 1e-4    # the trace's first iteration, card vs CPU
+STREAM_CASE = 3
+STREAM_SECONDS = 0.3        # wall-clock replay at 10 Hz: 2-3 ticks
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -1181,42 +1216,64 @@ def phase_batch(K, device="cuda", n_episodes=BATCH, steps=BATCH_STEPS,
 
 
 def phase_batch_gate(ocp_batch, record, settings, n):
-    """Control step k of cases 0..n-1 in float64: the batched step once for
-    the n episodes, the unbatched port step once per episode, from the same
-    states, carries and served forecasts, on the same device. Every cascade
-    branch equal; each action within BATCH_ACTION_TOL, unless the unbatched
-    step itself moves by more than that between this device and the CPU
-    (rounding decides the step; see BATCH_ACTION_TOL's note): then within
-    CROSS_ACTION_F32_TOL. At most one case may be decided by rounding. Then
-    the same step at GATE_SHORT_ITERS IPM iterations: every action within
-    BATCH_ACTION_TOL and every branch equal."""
-    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    """The batch phase's gate (``batch_gate``) on the fused controller's
+    MPC half: the batched step is act_on_forecasts_batch, the unbatched
+    one act_on_forecasts, both on the recorded served forecasts."""
     from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
-    from sicnav_tpu_torch.mpc.ocp import OCP
 
     cfg = protocol_env()
-    k, states, carries, (fc, lw) = record
+    k, states, carries, served = record
+
+    def batched(st, ca, extra, s):
+        return SD.act_on_forecasts_batch(ocp_batch, st, ca, *extra, cfg, s,
+                                         aux=True)
+
+    def single(ocp, st, ca, extra, s):
+        return SD.act_on_forecasts(ocp, st, ca, *extra, cfg, s, aux=True)
+
+    batch_gate(ocp_batch, k, states, carries, served, settings, n, batched,
+               single)
+
+
+def batch_gate(ocp_batch, k, states, carries, extra, settings, n, batched,
+               single):
+    """Control step k of cases 0..n-1 in float64: ``batched(states,
+    carries, extra, settings)`` once for the n episodes, ``single(ocp,
+    state, carry, extra, settings)`` once per episode, from the same
+    states, carries and per-episode inputs ``extra``, on the same device.
+    Every cascade branch equal; each action within BATCH_ACTION_TOL,
+    unless the unbatched step itself moves by more than that between this
+    device and the CPU (rounding decides the step; see BATCH_ACTION_TOL's
+    note): then within CROSS_ACTION_F32_TOL. At most one case may be
+    decided by rounding. Then the same step at GATE_SHORT_ITERS IPM
+    iterations: every action within BATCH_ACTION_TOL and every branch
+    equal."""
+    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    from sicnav_tpu_torch.mpc.ocp import OCP
 
     def f64(x):
         return x.double() if x.is_floating_point() else x
 
-    st, ca, fc, lw = (tree_map(lambda x: f64(x[:n]), t)
-                      for t in (states, carries, fc, lw))
+    st, ca, *ex = (tree_map(lambda x: f64(x[:n]), t)
+                   for t in (states, carries, *extra))
     dev = st.r_pos.device
     t0 = time.perf_counter()
-    a_b, _, aux_b = SD.act_on_forecasts_batch(ocp_batch, st, ca, fc, lw, cfg,
-                                              settings, aux=True)
+    a_b, _, aux_b = batched(st, ca, ex, settings)
     _sync(dev)
     ms_b = (time.perf_counter() - t0) * 1e3
     ocp_1 = OCP(ocp_batch.cfg, device=dev)
     branches = ("use_guess", "sol_feasible", "sol_realistic", "cost_worse",
                 "braked", "rescued")
+
+    def episode(i):
+        return [tree_map(lambda x: x[i], t) for t in (st, ca)], \
+            [tree_map(lambda x: x[i], t) for t in ex]
+
     errs, ms_1, decided_by_rounding = [], [], []
     for i in range(n):
-        one = [tree_map(lambda x: x[i], t) for t in (st, ca, fc, lw)]
+        (st_i, ca_i), ex_i = episode(i)
         t0 = time.perf_counter()
-        a_i, _, aux_i = SD.act_on_forecasts(ocp_1, *one, cfg, settings,
-                                            aux=True)
+        a_i, _, aux_i = single(ocp_1, st_i, ca_i, ex_i, settings)
         _sync(dev)
         ms_1.append((time.perf_counter() - t0) * 1e3)
         assert a_i.dtype == torch.float64 == a_b.dtype
@@ -1228,10 +1285,10 @@ def phase_batch_gate(ocp_batch, record, settings, n):
         if errs[-1] > BATCH_ACTION_TOL:
             # the same unbatched step on the CPU: how far rounding alone
             # moves it
-            a_cpu = SD.act_on_forecasts(
-                OCP(ocp_batch.cfg, device="cpu"),
-                *(tree_map(lambda x: x.cpu(), t) for t in one), cfg,
-                settings)[0]
+            def cpu(t):
+                return tree_map(lambda x: x.cpu(), t)
+            a_cpu = single(OCP(ocp_batch.cfg, device="cpu"), cpu(st_i),
+                           cpu(ca_i), [cpu(t) for t in ex_i], settings)[0]
             e_cpu = (a_i.cpu() - a_cpu).abs().max().item()
             note = (f"; the unbatched step on the CPU {a_cpu.tolist()}, "
                     f"{e_cpu:.3e} from the card's")
@@ -1244,20 +1301,18 @@ def phase_batch_gate(ocp_batch, record, settings, n):
             f"{bool(aux_i.braked)} on both{note}")
     strict = [e for i, e in enumerate(errs) if i not in decided_by_rounding]
     log(f"  float64 gate: cascade branches equal; max abs err "
-        f"{max(strict):.3e} on the {len(strict)} cases float64 decides "
-        f"(bound {BATCH_ACTION_TOL}); cases decided by rounding "
+        f"{max(strict, default=0.0):.3e} on the {len(strict)} cases float64 "
+        f"decides (bound {BATCH_ACTION_TOL}); cases decided by rounding "
         f"{decided_by_rounding} (bound {CROSS_ACTION_F32_TOL}); batched "
         f"step {ms_b:.1f} ms for {n} episodes, unbatched {sum(ms_1):.1f} ms")
     assert len(decided_by_rounding) <= 1, decided_by_rounding
 
     short = dataclasses.replace(settings, n_iter=GATE_SHORT_ITERS)
-    a_b, _, aux_b = SD.act_on_forecasts_batch(ocp_batch, st, ca, fc, lw, cfg,
-                                              short, aux=True)
+    a_b, _, aux_b = batched(st, ca, ex, short)
     errs = []
     for i in range(n):
-        a_i, _, aux_i = SD.act_on_forecasts(
-            ocp_1, *(tree_map(lambda x: x[i], t) for t in (st, ca, fc, lw)),
-            cfg, short, aux=True)
+        (st_i, ca_i), ex_i = episode(i)
+        a_i, _, aux_i = single(ocp_1, st_i, ca_i, ex_i, short)
         errs.append((a_b[i] - a_i).abs().max().item())
         for name in branches:
             got, want = getattr(aux_b, name)[i], getattr(aux_i, name)
@@ -2542,6 +2597,248 @@ def phase_imid(K, device="cuda", weights=None, widths=None,
     return launches
 
 
+def _observe_args(policy, device, n_iter, *extra):
+    """scripts/eval_suite_torch.py's arguments of the observe phase."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import eval_suite_torch as ES
+    return ES, ES.parse_args(["--policy", policy, "--noise_std",
+                              str(OBSERVE_NOISE), "--kalman_filter",
+                              "--ipm_iters", str(n_iter), "--device",
+                              str(device), *extra])
+
+
+def _timed_rollout(device, cases, init_carry_fn, step_fn, steps, times):
+    """batch_rollout_stateful of the protocol's cases, each batched
+    control step's seconds appended to ``times``; returns (final states,
+    stats, the carries after each step)."""
+    from sicnav_tpu_torch.env import crowd_sim
+    from sicnav_tpu_torch.env.rollout import batch_rollout_stateful
+
+    cfg = protocol_env()
+    states = crowd_sim.reset_batch(cfg, cases, device=device)
+    carried = []
+
+    def timed(states, carries):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = step_fn(states, carries)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        carried.append(out[1])
+        return out
+
+    final, stats = batch_rollout_stateful(states, init_carry_fn(cases),
+                                          timed, cfg, steps)
+    return final, stats, carried
+
+
+def observe_plain(device, n_episodes, steps, n_iter, gate_cases):
+    """Plain SICNav-p (eval_suite_torch.py --policy campc --privileged) under
+    sigma = OBSERVE_NOISE noise and the Kalman filter, cases 0..B-1 as one
+    batch; the float64 gate on step min(CROSS_STEP, steps - 1) of the
+    filtered states; one profiled batched step on the card. Returns the
+    recorded (ocp, filtered state, carry) of case 0 at that step."""
+    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    from sicnav_tpu_torch.mpc import campc as C
+    from sicnav_tpu_torch.mpc import ipm
+
+    cfg = protocol_env()
+    ES, args = _observe_args("campc", device, n_iter, "--privileged")
+    k_gate = min(CROSS_STEP, steps - 1)
+    record, built = [], []
+
+    def recording(orig):
+        def make(*a, **kw):
+            ocp, init_fn, step_fn = orig(*a, **kw)
+            built.append(ocp)
+
+            def step(states, carries):
+                if len(record) == k_gate:
+                    record.append((states, carries))
+                elif len(record) < k_gate:
+                    record.append(None)
+                return step_fn(states, carries)
+            return ocp, init_fn, step
+        return make
+
+    restore = _wrap(C, "make_policy", recording)
+    try:
+        init_fn, step_fn = ES.campc_policy(args, cfg, torch.device(device))
+    finally:
+        restore()
+    ocp = built[0]
+    assert ocp.vmapped and ocp.cfg.priviledged_info and not ocp.cfg.door_yield
+    times = []
+    final, stats, carried = _timed_rollout(device, list(range(n_episodes)),
+                                           init_fn, step_fn, steps, times)
+    acc = torch.stack([c[1].prev_ok for c in carried]).float()
+    assert bool(torch.isfinite(final.r_pos).all())
+    assert all(bool(c[0].initialized.all()) for c in carried)
+    settings = ipm.IPMSettings(n_iter=n_iter)
+    log(f"  plain SICNav-p (campc --privileged, RA-L, wall margin "
+        f"{ocp.cfg.wall_margin}), noise {OBSERVE_NOISE} + Kalman filter, "
+        f"{n_episodes} episodes, {steps} batched steps of 122, IPM "
+        f"{n_iter} iterations: MPC per batched step median "
+        f"{statistics.median(times) * 1e3:.2f} ms, p90 "
+        f"{pct(times, 0.9) * 1e3:.2f} ms; cascade accepted the solution on "
+        f"{int(acc.sum().item())} of {acc.numel()} episode-steps "
+        f"({100 * acc.mean().item():.1f} %); collision episodes "
+        f"{(stats.collision_steps > 0).sum().item()}")
+    states_k, carries_k = record[k_gate]
+
+    def batched(st, ca, extra, s):
+        with ipm.batched_lu_threads(ocp.device):
+            return torch.func.vmap(lambda x, c: C.campc_action(
+                ocp, x, c, cfg, s, aux=True))(st, ca)
+
+    def single(o, st, ca, extra, s):
+        return C.campc_action(o, st, ca, cfg, s, aux=True)
+
+    batch_gate(ocp, k_gate, states_k, carries_k, (), settings, gate_cases,
+               batched, single)
+    if torch.device(device).type == "cuda":
+        from sicnav_tpu_torch.env import crowd_sim
+        wall, busy, n, _ = _profiled(lambda: crowd_sim.step_masked(
+            final, step_fn(final, carried[-1])[0], cfg))
+        log(f"  1 profiled batched plain step (B = {n_episodes}, with its "
+            f"env step): wall {wall:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy / wall:.1f} %), {n} device launches")
+    return ocp, tree_map(lambda x: x[0], states_k), \
+        tree_map(lambda x: x[0], carries_k)
+
+
+def observe_fused(K, device, n_episodes, steps, n_iter):
+    """The fused controller (eval_suite_torch.py --policy sicnav_diffusion)
+    under the same noise and filter; returns the kernel's launches."""
+    from sicnav_tpu_torch.diffusion import kde as KDE
+
+    cfg = protocol_env()
+    ES, args = _observe_args("sicnav_diffusion", device, n_iter)
+    init_fn, step_fn = ES.sicnav_diffusion_policy(args, cfg,
+                                                  torch.device(device))
+    ranked, times = [], []
+
+    def kept(orig):
+        def fn(preds, bandwidth):
+            ranked.append((preds, bandwidth))
+            return orig(preds, bandwidth)
+        return fn
+
+    restore = _wrap(KDE, "kde_loglik_fused", kept)
+    K.kde_loglik.launches = 0
+    try:
+        final, stats, carried = _timed_rollout(
+            device, list(range(n_episodes)), init_fn, step_fn, steps, times)
+    finally:
+        restore()
+    launches = K.kde_loglik.launches
+    acc = torch.stack([c[1].mpc.prev_ok for c in carried]).float()
+    assert bool(torch.isfinite(final.r_pos).all())
+    assert len(ranked) == steps
+    for preds, _ in ranked:
+        assert tuple(preds.shape) == (8 * n_episodes, 48, 6), preds.shape
+    if torch.device(device).type == "cuda":
+        assert launches == steps, (launches, steps)
+        check_live_kde(K, ranked)
+    log(f"  fused SICNav-Diffusion, noise {OBSERVE_NOISE} + Kalman filter, "
+        f"{n_episodes} episodes, {steps} batched steps, IPM {n_iter} "
+        f"iterations: control step median {statistics.median(times) * 1e3:.2f}"
+        f" ms, p90 {pct(times, 0.9) * 1e3:.2f} ms; cascade accepted "
+        f"{int(acc.sum().item())} of {acc.numel()} episode-steps; "
+        f"{launches} kde_loglik launches on {tuple(ranked[0][0].shape)}")
+    return launches
+
+
+def observe_debug(ocp_b, state, carry, n_iter):
+    """debug_solve_report of the plain step's NLP (case 0, the gate's
+    step) on the device and on the CPU, from the same guess: the trace's
+    first iteration within OBSERVE_DEBUG_TOL, the worst class equal."""
+    from sicnav_tpu_torch.env.crowd_sim import tree_map
+    from sicnav_tpu_torch.mpc import campc as C
+    from sicnav_tpu_torch.mpc import introspection as IN
+    from sicnav_tpu_torch.mpc import ipm
+    from sicnav_tpu_torch.mpc.ocp import OCP
+
+    cfg = protocol_env()
+    settings = ipm.IPMSettings(n_iter=n_iter)
+    dev = state.r_pos.device
+    out = {}
+    for name, d in (("device", dev), ("cpu", torch.device("cpu"))):
+        o = OCP(ocp_b.cfg, device=d)
+        st, ca = (tree_map(lambda x: x.to(d), t) for t in (state, carry))
+        params = C.step_problem(o, st, ca, cfg)[0]
+        z0 = C._select_guess(o, ca, params)
+        _sync(d)
+        t0 = time.perf_counter()
+        out[name] = IN.debug_solve_report(o, params, z0, settings)
+        out[name]["s"] = time.perf_counter() - t0
+    got, want = out["device"], out["cpu"]
+    err = max(abs(float(got["iterations"][k][0]) -
+                  float(want["iterations"][k][0])) /
+              max(1.0, abs(float(want["iterations"][k][0])))
+              for k in IN.IterTrace._fields)
+    ranked = sorted(got["viol_sol"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"  debug_solve_report ({n_iter} IPM iterations) on {dev.type}: "
+        f"{got['s']:.2f} s, on the CPU {want['s']:.2f} s; first iteration's "
+        f"nine trace rows max rel err {err:.3e} (bound {OBSERVE_DEBUG_TOL}); "
+        f"worst {got['worst']['name']} {got['worst']['row']} "
+        f"{got['worst']['value']:.3e} (CPU: {want['worst']['name']} "
+        f"{want['worst']['row']} {want['worst']['value']:.3e}); top classes "
+        f"{[(k, f'{v:.3e}') for k, v in ranked]}; eq_viol "
+        f"{got['info']['eq_viol']:.3e} / {want['info']['eq_viol']:.3e}")
+    assert err <= OBSERVE_DEBUG_TOL, err
+    assert got["worst"]["name"] == want["worst"]["name"], (got["worst"],
+                                                          want["worst"])
+
+
+def observe_stream(K, device, seconds):
+    """scripts/real_robot_loop_torch.py on host case STREAM_CASE; returns
+    (its JSON line, the kernel's launches)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import real_robot_loop_torch as RL
+
+    K.kde_loglik.launches = 0
+    out = _json_out(RL.main, ["--case", str(STREAM_CASE), "--duration_s",
+                              str(seconds), "--device", str(device)])[-1]
+    launches = K.kde_loglik.launches
+    log(f"  stream (real_robot_loop_torch.py --case {STREAM_CASE} "
+        f"--duration_s {seconds}): {json.dumps(out)}; {launches} "
+        f"kde_loglik launches (the warm-up step and {out['ticks']} ticks)")
+    assert out["ticks"] >= 1 and math.isfinite(out["latency_p50_ms"])
+    if torch.device(device).type == "cuda":
+        assert launches == out["ticks"] + 1, (launches, out["ticks"])
+    return out, launches
+
+
+def phase_observe(K, device="cuda", n_episodes=BATCH,
+                  plain_steps=OBSERVE_PLAIN_STEPS,
+                  fused_steps=OBSERVE_FUSED_STEPS, n_iter=MPC_IPM_ITERS,
+                  gate_cases=GATE_CASES, stream_s=STREAM_SECONDS):
+    """The observation path, the plain controller, the solver's
+    introspection and the streaming controller (plain, fused, debug,
+    stream). The keyword arguments exist for the CPU rehearsal
+    (tests/test_torch_realtime.py). Returns the kernel's launches on the
+    phase's paths (fused and stream). Logs each part's seconds."""
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        log(f"  [{name}] {t1 - t0:.2f} s")
+        t0 = t1
+
+    ocp, state, carry = observe_plain(device, n_episodes, plain_steps,
+                                      n_iter, gate_cases)
+    part("plain")
+    fused = observe_fused(K, device, n_episodes, fused_steps, n_iter)
+    part("fused")
+    observe_debug(ocp, state, carry, n_iter)
+    part("debug")
+    _, stream = observe_stream(K, device, stream_s)
+    part("stream")
+    return fused + stream
+
+
 def state_tc(recipe, batch_size):
     """The recipe's TrainConfig at the batch size the data reached."""
     return dataclasses.replace(recipe.train, batch_size=batch_size)
@@ -2609,6 +2906,8 @@ def main():
         entry["launches_by_path"]["rl"] = K.kde_loglik.launches
     with Phase("imid"):
         entry["launches_by_path"]["imid"] = phase_imid(K)
+    with Phase("observe"):
+        entry["launches_by_path"]["observe"] = phase_observe(K)
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

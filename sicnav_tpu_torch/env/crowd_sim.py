@@ -32,13 +32,39 @@ from sicnav_tpu_torch.env.wall_clamp import (
 from sicnav_tpu_torch.ops.geometry import norm2, wrap_angle
 
 
+# A tree is nested tuples and NamedTuples of tensors: DoorParams nests in
+# SimState, and the observation filter's carry is a plain (KFState, inner)
+# pair. Every tuple is a node; anything else is a leaf.
+
 def tree_map(fn, *trees):
-    """Apply ``fn`` leafwise over NamedTuples of tensors (DoorParams nests
-    in SimState)."""
+    """Apply ``fn`` leafwise over trees of the same structure."""
     first = trees[0]
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*[tree_map(fn, *leaves) for leaves in zip(*trees)])
+    if isinstance(first, tuple):
+        children = [tree_map(fn, *leaves) for leaves in zip(*trees)]
+        return (type(first)(*children) if hasattr(first, "_fields")
+                else tuple(children))
     return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The leaves of ``tree``, in field order."""
+    if isinstance(tree, tuple):
+        return [x for sub in tree for x in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure around ``leaves`` (in tree_leaves' order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_nodes(tree):
+    """Every node of ``tree``, parents before their children."""
+    if isinstance(tree, tuple):
+        yield tree
+        for sub in tree:
+            yield from tree_nodes(sub)
 
 
 # ---------------------------------------------------------------------------

@@ -64,15 +64,9 @@ def init_stats(cfg: EnvConfig, device, lead=()) -> EpisodeStats:
 
 def _carry_field(carry, name):
     """The field ``name`` (e.g. campc.CAMPCCarry's ``door_latch``) anywhere
-    in a carry of nested NamedTuples, or None when the policy has none."""
-    if isinstance(carry, tuple) and hasattr(carry, "_fields"):
-        if name in carry._fields:
-            return getattr(carry, name)
-        for x in carry:
-            found = _carry_field(x, name)
-            if found is not None:
-                return found
-    return None
+    in a carry tree, or None when the policy has none."""
+    return next((getattr(node, name) for node in crowd_sim.tree_nodes(carry)
+                 if name in getattr(node, "_fields", ())), None)
 
 
 def _door_latch(carry, state: SimState):

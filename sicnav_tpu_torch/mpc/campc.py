@@ -15,7 +15,10 @@ the evasive-brake fan) read their condition on the host, once per step;
 the values are the reference's. On an OCP built ``vmapped`` (a controller
 under ``torch.func.vmap`` over episodes) both branches are computed and
 selected, as ``lax.cond`` does under ``jax.vmap``. The multi-start solves
-run one after another where the reference ``vmap``s them.
+run one after another where the reference ``vmap``s them. The
+adaptive-effort budget is read on the host once per step; on a ``vmapped``
+OCP it stays a tensor per episode, and the solver freezes an episode's
+iterate once its budget is spent.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.func import vmap
 
-from sicnav_tpu_torch.env.crowd_sim import intermediate_goals
+from sicnav_tpu_torch.env.crowd_sim import intermediate_goals, stack
 from sicnav_tpu_torch.env.types import EnvConfig, SimState
+from sicnav_tpu_torch.mpc import introspection as IN
 from sicnav_tpu_torch.mpc import ipm, warmstart as WS
 from sicnav_tpu_torch.mpc.ocp import MPCConfig, MPCParams, OCP
 from sicnav_tpu_torch.mpc.ref_traj import point_stab_reference
@@ -452,10 +457,15 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
                  env_cfg: EnvConfig,
                  settings: ipm.IPMSettings = ipm.IPMSettings(),
                  mid_samples=None, mid_logw0=None, aux: bool = False,
-                 h_intent=None, cost_weights=None):
+                 h_intent=None, cost_weights=None, debug: bool = False):
     """One CAMPC control step. Returns (action (2,) = (v, r = om * dt),
-    carry'); with ``aux=True`` also a ``CAMPCAux``. The reference's
-    ``debug`` mode (its introspection module) is not ported."""
+    carry'); with ``aux=True`` also a ``CAMPCAux``; else with
+    ``debug=True`` also an ``introspection.SolveDebug`` (the iteration
+    trace and the named violations of the solution and the adopted plan).
+
+    As in the reference, the debug path solves from the selected guess
+    alone and never escalates (``adaptive_effort`` is ignored): to trace
+    an escalated step, pass settings with the escalated ``n_iter``."""
     cfg = ocp.cfg
     params, (door_stall, door_latch), (f_fn, c_fn) = \
         step_problem(ocp, state, carry, env_cfg, mid_samples, mid_logw0,
@@ -471,22 +481,30 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
             m = torch.minimum(m, _min_wall_clearance(params, Xr_ex))
         return m
 
-    # failure-triggered effort escalation: read once per step
-    n_dyn = None
-    if cfg.adaptive_effort > 0 and ocp.vmapped:
-        raise NotImplementedError(
-            "MPCConfig.adaptive_effort cannot be batched: the port reads "
-            "each step's IPM iteration budget on the host")
-    if cfg.adaptive_effort > 0:
-        n_dyn = settings.n_iter + (cfg.adaptive_effort if bool(
-            carry.has_prev & ~carry.prev_ok) else 0)
+    # failure-triggered effort escalation: a step whose previous solve the
+    # cascade rejected gets cfg.adaptive_effort more IPM iterations; read
+    # once per step on the host, or a tensor per episode when vmapped
+    n_dyn, bound = None, None
+    if cfg.adaptive_effort > 0 and not debug:
+        escalate = carry.has_prev & ~carry.prev_ok
+        bound = settings.n_iter + cfg.adaptive_effort
+        if ocp.vmapped:
+            n_dyn = settings.n_iter + \
+                cfg.adaptive_effort * escalate.to(torch.int32)
+        else:
+            n_dyn = bound if bool(escalate) else settings.n_iter
 
     def run(z0):
-        return ipm.solve(f_fn, c_fn, z0, settings, n_iter_dyn=n_dyn)
+        return ipm.solve(f_fn, c_fn, z0, settings, n_iter_dyn=n_dyn,
+                         n_iter_bound=bound)
 
-    if cfg.multi_start <= 1:
+    if debug or cfg.multi_start <= 1:
         z_guess = _select_guess(ocp, carry, params)
-        z_sol, info = run(z_guess)
+        if debug:
+            z_sol, info, raw_trace = ipm.solve(f_fn, c_fn, z_guess, settings,
+                                               return_trace=True)
+        else:
+            z_sol, info = run(z_guess)
         sol_margin = plan_margin(ocp.unpack(z_sol)[0])
     else:
         # every start solved, then the best exact-rollout-feasible solution
@@ -527,7 +545,7 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
     # keep the guess when the "optimized" value is worse; with multi-start
     # only when the guess is itself exact-rollout-realistic
     cost_worse = sol_cost > guess_cost
-    if cfg.multi_start > 1:
+    if cfg.multi_start > 1 and not debug:
         cost_worse = cost_worse & (plan_margin(ocp.unpack(z_guess)[0]) >
                                    cfg.accept_margin)
     use_guess = (~sol_feasible) | (~sol_realistic) | cost_worse
@@ -542,7 +560,7 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
                                      cfg.brake_horizon)
         guess_ok = guess_ok & (~use_guess | (margin_g > cfg.brake_margin))
     use_rescue = torch.zeros_like(guess_ok)
-    if cfg.rescue_best_margin and cfg.multi_start > 1:
+    if cfg.rescue_best_margin and cfg.multi_start > 1 and not debug:
         use_rescue = (use_guess & ~guess_ok & torch.isfinite(z_mbest).all()
                       & (m_best > cfg.brake_margin))
         z_used = torch.where(use_rescue, z_mbest, z_used)
@@ -569,6 +587,18 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
                                   torch.zeros_like(carry.num_prev_used)),
         pred_rob=_rob_pose(ocp, Xr_used[1]), pred_hums=Xh_used[1][:, :2],
         door_stall=door_stall, door_latch=door_latch)
+    if debug and not aux:
+        u_rob_g, u_hums_g, _, _ = ocp.unpack(z_guess)
+        Xr_g, _ = ocp.rollout(params, u_rob_g, u_hums_g)
+        return action, carry_new, IN.SolveDebug(
+            trace=IN.IterTrace(*raw_trace), info=info,
+            viol_sol=IN.constraint_report(ocp, z_sol, params),
+            viol_used=IN.constraint_report(ocp, z_used, params),
+            used_guess=use_guess, sol_cost=sol_cost, guess_cost=guess_cost,
+            slack_max=torch.amax(torch.cat([x.reshape(-1)
+                                            for x in slacks_used])),
+            plan=Xr_used[:, :2], guess_plan=Xr_g[:, :2],
+            human_plans=Xh_used[:, :, :2].transpose(0, 1))
     if not aux:
         return action, carry_new
     Xr_a, Xh_a = WS.exact_human_rollout(ocp, params, u_rob_used)
@@ -584,17 +614,36 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
 
 
 def make_policy(env_cfg: EnvConfig, mpc_cfg: Optional[MPCConfig] = None,
-                settings: Optional[ipm.IPMSettings] = None, device=None):
+                settings: Optional[ipm.IPMSettings] = None, device=None,
+                batch: bool = False, aux: bool = False):
     """Build (ocp, policy_fn) where policy_fn(state, carry) -> (action,
-    carry), on ``device`` (CUDA unless named)."""
+    carry), on ``device`` (CUDA unless named).
+
+    ``batch=True`` builds the batched policy instead, on an OCP built
+    ``vmapped``: (ocp, init_carry_fn, step_fn) for
+    ``rollout.batch_rollout_stateful`` and ``harness.evaluate_policy``.
+    ``init_carry_fn(cases)`` stacks one fresh carry per case, and
+    ``step_fn(states, carries) -> (actions, carries)`` (+ ``CAMPCAux`` with
+    ``aux``) is ``campc_action`` ``torch.func.vmap``ped over the leading
+    episode axis."""
     if mpc_cfg is None:
         mpc_cfg = MPCConfig(num_hums=env_cfg.max_humans,
                             num_walls=env_cfg.wall_slots, dt=env_cfg.dt)
-    ocp = OCP(mpc_cfg, device=device)
+    ocp = OCP(mpc_cfg, device=device, vmapped=batch)
     if settings is None:
         settings = ipm.realtime_settings(mpc_cfg.num_hums)
 
     def policy_fn(state: SimState, carry: CAMPCCarry):
-        return campc_action(ocp, state, carry, env_cfg, settings)
+        return campc_action(ocp, state, carry, env_cfg, settings, aux=aux)
 
-    return ocp, policy_fn
+    if not batch:
+        return ocp, policy_fn
+
+    def init_carry_fn(cases):
+        return stack([init_carry(ocp) for _ in cases])
+
+    def step_fn(states, carries):
+        with ipm.batched_lu_threads(ocp.device):
+            return vmap(policy_fn)(states, carries)
+
+    return ocp, init_carry_fn, step_fn

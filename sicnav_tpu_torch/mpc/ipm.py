@@ -21,11 +21,17 @@ The reference's fixed-trip ``lax.scan`` and early-exit ``lax.while_loop``
 are one host loop here. Every branch inside an iteration is a
 ``torch.where``, so no iteration waits on the device: an early exit freezes
 the iterate (as the while loop stops changing it) and counts the
-iterations it ran, and the loop runs its full trip count.
+iterations it ran, and the loop runs its full trip count. A per-episode
+iteration budget (a tensor ``n_iter_dyn`` under ``torch.func.vmap``) works
+the same way: the loop runs the static bound the caller names and an
+episode's iterate is frozen once its budget is spent, as the reference's
+while loop under ``jax.vmap`` runs until the last episode's budget is spent
+with the others frozen.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple
 
@@ -70,6 +76,24 @@ def realtime_settings(num_hums: int, with_mid: bool = False,
         base = IPMSettings()
     table = {1: 24, 2: 20, 3: 15}
     return dataclasses.replace(base, n_iter=table.get(num_hums, 12))
+
+
+@contextlib.contextmanager
+def batched_lu_threads(device):
+    """On the CPU, one intra-op thread while the block runs. torch's CPU
+    LU of a batch of matrices over ~128 rows (LAPACK getrf in a parallel
+    loop over the batch) prints DLASWP parameter errors and never returns
+    when it runs on more than one thread (torch 2.13); the vmapped IPM
+    factors B KKT matrices of ~300 rows at once. CUDA is untouched."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 class IPMState(NamedTuple):
@@ -120,18 +144,37 @@ def _all_finite(*xs):
 
 
 def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
-          settings: IPMSettings = IPMSettings(), return_duals: bool = False,
-          n_iter_dyn=None):
+          settings: IPMSettings = IPMSettings(), return_trace: bool = False,
+          return_duals: bool = False, n_iter_dyn=None,
+          n_iter_bound: int = None):
     """Solve one NLP: ``f_fn`` maps z -> f(z), ``c_fn`` maps z -> (c_E(z),
     c_I(z)) in one evaluation, so that both row blocks are differentiated
-    in one pass. Returns (z, IPMInfo), and (y, lam, s) with
-    ``return_duals``.
+    in one pass. Returns (z, IPMInfo), then the trace with
+    ``return_trace``, then (y, lam, s) with ``return_duals``.
+
+    ``return_trace``: the reference's nine per-iteration rows (obj, merit,
+    alpha, mu, delta, eq_viol, ineq_viol, kkt_stat, kkt_comp), each
+    (settings.n_iter,), of a fixed-trip solve: as in the reference, the
+    early exit does not apply to a traced solve.
 
     ``n_iter_dyn``: an iteration budget that overrides ``settings.n_iter``
-    (the adaptive-effort lever); read once, before the loop. The
-    reference's ``return_trace`` is not ported: nothing in the port reads
-    a trace.
+    (the adaptive-effort lever). An int is a host value: the loop runs
+    that many iterations. A tensor (one per episode under ``vmap``) needs
+    ``n_iter_bound``, the most it can be: the loop runs that many and an
+    iterate is frozen once ``it >= n_iter_dyn``. Like the reference's, it
+    cannot be combined with ``return_trace``.
     """
+    if return_trace and n_iter_dyn is not None:
+        raise ValueError(
+            "n_iter_dyn is unsupported with return_trace=True: the traced "
+            "path runs a fixed-trip loop of settings.n_iter iterations and "
+            "would not reflect the escalated budget. Pass "
+            "settings=replace(settings, n_iter=<escalated>) to trace an "
+            "adaptive-effort solve.")
+    budget = torch.is_tensor(n_iter_dyn)
+    if budget and n_iter_bound is None:
+        raise ValueError("a tensor n_iter_dyn needs n_iter_bound, the "
+                         "static bound of the loop")
     st = settings
     n = z0.shape[0]
     dtype, device = z0.dtype, z0.device
@@ -288,6 +331,7 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
             step_y = torch.where(use_soc, a_d2 * dy2, step_y)
             improved = improved | use_soc
             merit_best = torch.minimum(merit_best, merit_soc)
+            alpha = torch.where(use_soc, a_p2, alpha)
 
         z_new = z + step_z
         s_new = torch.clamp(s + step_s, min=st.s_min)
@@ -300,11 +344,11 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
                                 torch.clamp(delta * 10.0, max=st.delta_max))
         new_state = IPMState(z_new, y_new, lam_new, s_new, delta_new,
                              merit_best)
-        # what the best-feasible tracker and the early exit read, of the
-        # pre-step iterate
-        checks = (f_val, _amax0(torch.abs(c_e)), _amax0(c_i), kkt_stat,
-                  kkt_comp)
-        return new_state, checks
+        # the reference's trace row; the best-feasible tracker and the early
+        # exit read its f, eq and ineq, of the pre-step iterate
+        row = (f_val, merit_best, alpha, mu, delta, _amax0(torch.abs(c_e)),
+               _amax0(c_i), kkt_stat, kkt_comp)
+        return new_state, row
 
     init = IPMState(z0, y0, lam0, s0,
                     torch.tensor(st.delta_init, dtype=dtype, device=device),
@@ -316,30 +360,37 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
         # best-feasible-iterate tracker: the checks' f/eq/ineq belong to
         # the pre-step iterate state.z
         z_b, f_b, has_b = best
-        f_val, eq_v, ineq_v = tr[:3]
+        f_val, eq_v, ineq_v = tr[0], tr[5], tr[6]
         feas = (eq_v < st.feas_tol) & (ineq_v < st.feas_tol)
         better = feas & ((~has_b) | (f_val < f_b))
         return (torch.where(better, state.z, z_b),
                 torch.where(better, f_val, f_b), has_b | feas)
 
-    early = st.early_exit_tol > 0.0 or n_iter_dyn is not None
-    limit = st.n_iter if n_iter_dyn is None else int(n_iter_dyn)
+    early = (st.early_exit_tol > 0.0 or n_iter_dyn is not None) and \
+        not return_trace
+    limit = (st.n_iter if n_iter_dyn is None else
+             n_iter_bound if budget else int(n_iter_dyn))
     state = init
     done = false
     n_used = torch.zeros((), dtype=torch.int32, device=device)
+    rows = []
     for it in range(limit):
         new_state, tr = step(state, it)
+        if return_trace:
+            rows.append(tr)
+        frozen = done | (it >= n_iter_dyn) if budget else done
         if st.keep_best_feasible:
             new_best = track_best(state, best, tr)
-            best = tuple(torch.where(done, b, nb)
+            best = tuple(torch.where(frozen, b, nb)
                          for b, nb in zip(best, new_best))
         if early:
-            # the while loop's semantics: once done, the iterate is frozen
-            state = IPMState(*[torch.where(done, a, b)
+            # the while loop's semantics: once done or out of budget, the
+            # iterate is frozen
+            state = IPMState(*[torch.where(frozen, a, b)
                                for a, b in zip(state, new_state)])
-            n_used = n_used + (~done).to(torch.int32)
+            n_used = n_used + (~frozen).to(torch.int32)
             if st.early_exit_tol > 0.0:
-                eq_v, ineq_v, kkt_stat, kkt_comp = tr[1:]
+                eq_v, ineq_v, kkt_stat, kkt_comp = tr[5:]
                 tol = st.early_exit_tol
                 done = done | ((kkt_stat < tol) & (eq_v < tol) &
                                (ineq_v < tol) &
@@ -363,6 +414,9 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
                    ineq_viol=_amax0(c_i),
                    comp=torch.dot(state.s, state.lam) / m_i, iters=n_used)
     z_out = z_fin * D_pre if D_pre is not None else z_fin
+    out = (z_out, info)
+    if return_trace:
+        out += (tuple(torch.stack(r) for r in zip(*rows)),)
     if return_duals:
-        return z_out, info, (state.y, state.lam, state.s)
-    return z_out, info
+        out += ((state.y, state.lam, state.s),)
+    return out

@@ -21,7 +21,6 @@ B x horizon groups), then ``torch.func.vmap`` maps the MPC half
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -95,49 +94,33 @@ def mpc_inputs(ocp: OCP, state: SimState, forecasts, log_w):
 def act_on_forecasts(ocp: OCP, state: SimState, mpc_carry: C.CAMPCCarry,
                      forecasts, log_w, env_cfg: EnvConfig,
                      settings: ipm.IPMSettings = ipm.IPMSettings(),
-                     aux: bool = False):
+                     aux: bool = False, debug: bool = False):
     """The MPC half of a control step on served forecasts (H, k, T+1, 2)
-    and log-weights (H, k). Returns (action, mpc_carry') (+ aux)."""
+    and log-weights (H, k). Returns (action, mpc_carry') (+ ``CAMPCAux``
+    with ``aux``, else + ``introspection.SolveDebug`` with ``debug``)."""
     view, mid_samples, mid_logw0, h_intent = mpc_inputs(ocp, state,
                                                         forecasts, log_w)
     return C.campc_action(ocp, view, mpc_carry, env_cfg, settings,
                           mid_samples=mid_samples, mid_logw0=mid_logw0,
-                          aux=aux, h_intent=h_intent)
+                          aux=aux, h_intent=h_intent, debug=debug)
 
 
 def sicnav_diffusion_action(ocp: OCP, model: JMIDModel, state: SimState,
                             carry: SICNavDiffCarry, env_cfg: EnvConfig,
                             fcfg: FC.ForecasterConfig,
                             settings: ipm.IPMSettings = ipm.IPMSettings(),
-                            aux: bool = False):
+                            aux: bool = False, debug: bool = False):
     """One SICNav-Diffusion control step. Returns (action (v, r), carry')
-    (+ ``campc.CAMPCAux`` with ``aux=True``)."""
+    (+ ``campc.CAMPCAux`` with ``aux=True``, else + the
+    ``introspection.SolveDebug`` with ``debug=True``)."""
     fstate = FC.update_state_hists(carry.forecaster, state, fcfg)
     forecasts, log_w = FC.predict_ret_best(model, fstate, state, fcfg,
                                            generator=carry.generator)
     out = act_on_forecasts(ocp, state, carry.mpc, forecasts, log_w, env_cfg,
-                           settings, aux=aux)
+                           settings, aux=aux, debug=debug)
     new_carry = SICNavDiffCarry(mpc=out[1], forecaster=fstate,
                                 generator=carry.generator)
     return (out[0], new_carry) + tuple(out[2:])
-
-
-@contextlib.contextmanager
-def _batched_lu_threads(device):
-    """On the CPU, one intra-op thread while the block runs. torch's CPU
-    LU of a batch of matrices over ~128 rows (LAPACK getrf in a parallel
-    loop over the batch) prints DLASWP parameter errors and never returns
-    when it runs on more than one thread (torch 2.13); the vmapped IPM
-    factors B KKT matrices of ~300 rows at once. CUDA is untouched."""
-    if torch.device(device).type != "cpu":
-        yield
-        return
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def act_on_forecasts_batch(ocp: OCP, states: SimState,
@@ -156,7 +139,7 @@ def act_on_forecasts_batch(ocp: OCP, states: SimState,
         return act_on_forecasts(ocp, state, carry, fc, lw, env_cfg, settings,
                                 aux=aux)
 
-    with _batched_lu_threads(ocp.device):
+    with ipm.batched_lu_threads(ocp.device):
         return vmap(one)(states, mpc_carry, forecasts, log_w)
 
 

@@ -196,13 +196,18 @@ def test_batched_evasive_brake_equals_per_episode(protocol_step):
 
 
 def test_batched_policy_refuses_what_it_cannot_batch(protocol_step):
+    """An unbatched OCP is refused. adaptive_effort, once refused here,
+    now batches: each episode's budget is a tensor
+    (tests/test_torch_campc_plain_batch.py holds it to unbatched runs)."""
     model, fcfg, states, carries, fc, lw = protocol_step
     ocp_b, init_fn, step_fn = SD.make_policy(
         PROTOCOL, model, fcfg=fcfg, settings=ipm.IPMSettings(n_iter=1),
         mpc_overrides={"adaptive_effort": 2}, device="cpu", batch=True)
-    with pytest.raises(NotImplementedError, match="adaptive_effort"):
-        SD.act_on_forecasts_batch(ocp_b, states, carries, fc, lw, PROTOCOL,
-                                  ipm.IPMSettings(n_iter=1))
+    failed = carries._replace(has_prev=torch.tensor([True, True]),
+                              prev_ok=torch.tensor([False, True]))
+    a, _ = SD.act_on_forecasts_batch(ocp_b, states, failed, fc, lw, PROTOCOL,
+                                     ipm.IPMSettings(n_iter=1))
+    assert a.shape == (2, 2) and bool(torch.isfinite(a).all())
     with pytest.raises(ValueError, match="vmapped=True"):
         SD.act_on_forecasts_batch(OCP(ocp_b.cfg, device="cpu"), states,
                                   carries, fc, lw, PROTOCOL)

@@ -35,7 +35,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
 SCRIPTS = [ROOT / "scripts" / name for name in (
     "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py",
     "train_rl_torch.py", "synthesize_ethucy_torch.py",
-    "process_data_torch.py")]
+    "process_data_torch.py", "real_robot_loop_torch.py")]
 # imported only inside the function that needs it, never at import time
 CALL_TIME_ONLY = {"dill"}
 PY_FILES = sorted(PKG.rglob("*.py")) + [
@@ -117,6 +117,16 @@ def test_scan_covers_rl():
     assert "scripts/train_rl_torch.py" in scanned
 
 
+def test_scan_covers_the_observation_path():
+    """The observation path, the solver's introspection, the streaming
+    controller and its script are among the files scanned."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("utils/robustness", "utils/state_filter",
+                 "mpc/introspection", "realtime"):
+        assert f"sicnav_tpu_torch/{name}.py" in scanned, name
+    assert "scripts/real_robot_loop_torch.py" in scanned
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import os\nfrom sicnav_tpu.ops import orca\n")
@@ -143,12 +153,15 @@ def test_package_holds_source_only():
 def test_entry_points_default_to_cuda():
     import eval_prediction_torch
     import eval_suite_torch
+    import real_robot_loop_torch
     import synthesize_ethucy_torch
     import train_jmid_torch
     import train_rl_torch
     from sicnav_tpu_torch.rl import dqn as D
     from sicnav_tpu_torch.rl import imitation as IL
     from sicnav_tpu_torch.rl import networks as N
+    from sicnav_tpu_torch.realtime import StreamingController
+    from sicnav_tpu_torch.utils.state_filter import init_filter
     cfg = T.EnvConfig()
     calls = [
         lambda: N.SARLNetwork(),
@@ -176,6 +189,11 @@ def test_entry_points_default_to_cuda():
         lambda: OCP.OCP(OCP.MPCConfig()),
         lambda: C.make_policy(cfg),
         lambda: SD.make_policy(cfg, None),
+        lambda: C.make_policy(cfg, batch=True),
+        lambda: init_filter(3, batch=2),
+        lambda: StreamingController(cfg, None),
+        lambda: real_robot_loop_torch.main([]),
+        lambda: eval_suite_torch.main(["--policy", "campc"]),
     ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
