@@ -158,6 +158,30 @@ Phases, in order; each prints one line with its own seconds:
             STREAM_SECONDS of wall clock at 10 Hz (its JSON line: ticks,
             latency p50 / p95, deadline misses); the kernel launched once
             per tick and once for the warm-up step.
+14. tools   the INI configs, the single-episode runner, the traced suite
+            audit and the control-step decomposition. config: configs/
+            env.config and configs/policy.config through config.py
+            (scenario, humans, robot_nx, hum_model, config_hash). simple:
+            scripts/simple_test_torch.py --policy dwa from configs/
+            env.config on hallway-bottleneck host case 0 to its end (the
+            outcome, steps, wall time, --output_pickle under build/), then
+            --policy sicnav_diffusion --checkpoint weights/jmid_hallway.npz
+            --debug_pickle for TOOLS_DEBUG_STEPS control steps at 30 IPM
+            iterations: the pickle's solves carry the reference's keys
+            and finite iteration traces; the kernel launched once per
+            step on (8, 48, 6) and held against its plain version on each
+            input. audit: scripts/suite_audit_torch.py --policy
+            sicnav_diffusion on TOOLS_AUDIT_CASES cases as one batch with
+            a TOOLS_AUDIT_TIME s limit (6 traced batched steps, 30
+            iterations) and a --resume_dir: its JSON, every collision and
+            timeout episode in one class, its summary that of the batch
+            file's stats, one launch per step on (8 * TOOLS_AUDIT_CASES,
+            48, 6) held against the plain version; a second call with the
+            same --resume_dir steps nothing and reports the same. bench:
+            scripts/bench_control_step_torch.py's rows at the protocol's
+            widths with TOOLS_BENCH_REPS calls each, kkt_dim the fused
+            OCP's n_z + n_eq (TOOLS_KKT_DIM); the kernel on its forecast
+            and fused rows held against the plain version.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -294,6 +318,15 @@ OBSERVE_FUSED_STEPS = 2     # batched fused steps
 OBSERVE_DEBUG_TOL = 1e-4    # the trace's first iteration, card vs CPU
 STREAM_CASE = 3
 STREAM_SECONDS = 0.3        # wall-clock replay at 10 Hz: 2-3 ticks
+# The tools phase: the INI configs, the single-episode runner, the traced
+# suite audit and the control-step decomposition, each cut to seconds.
+TOOLS_DEBUG_STEPS = 2       # simple_test --policy sicnav_diffusion steps
+TOOLS_AUDIT_CASES = 2       # suite_audit cases, one batch
+TOOLS_AUDIT_TIME = 1.0      # s: 1.0 / 0.25 + 2 = 6 traced batched steps
+TOOLS_BENCH_REPS = 2        # calls per bench_control_step row (CLI: 20)
+TOOLS_KKT_DIM = 317         # n_z + n_eq of the protocol's fused OCP
+DEBUG_KEYS = {"step", "trace", "info", "viol_sol", "viol_used", "used_guess",
+              "sol_cost", "guess_cost", "slack_max", "worst"}
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
 # tensor cores (the kernel's type), at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
@@ -2839,6 +2872,237 @@ def phase_observe(K, device="cuda", n_episodes=BATCH,
     return fused + stream
 
 
+def _script(name):
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import importlib
+    return importlib.import_module(name)
+
+
+def _captured(fn, *args, **kwargs):
+    """fn's return value and its standard output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args, **kwargs)
+    return ret, buf.getvalue()
+
+
+def _kde_path(K, fn):
+    """Run fn() with the kernel's launch count set to 0 just before it and
+    every kde_loglik_fused input recorded; returns (fn's value, the
+    launches, the inputs)."""
+    from sicnav_tpu_torch.diffusion import kde as KDE
+    ranked = []
+
+    def kept(orig):
+        def f(preds, bandwidth):
+            ranked.append((preds, bandwidth))
+            return orig(preds, bandwidth)
+        return f
+
+    restore = _wrap(KDE, "kde_loglik_fused", kept)
+    K.kde_loglik.launches = 0
+    try:
+        out = fn()
+    finally:
+        launches = K.kde_loglik.launches
+        restore()
+    return out, launches, ranked
+
+
+def _held(K, device, ranked, launches, shape, n):
+    """The path's n kernel inputs have ``shape``; on the card each was a
+    launch and is held against the plain version."""
+    assert len(ranked) == n, (len(ranked), n)
+    for preds, _ in ranked:
+        assert tuple(preds.shape) == shape, (tuple(preds.shape), shape)
+    if torch.device(device).type == "cuda":
+        assert launches == n, (launches, n)
+        check_live_kde(K, ranked)
+
+
+def tools_config():
+    from sicnav_tpu_torch import config as CF
+    env_path = os.path.join(ROOT, "configs", "env.config")
+    pol_path = os.path.join(ROOT, "configs", "policy.config")
+    env = CF.load_env_config(env_path)
+    mpc = CF.load_mpc_config(pol_path, env)
+    digest = CF.config_hash(env_path, pol_path)
+    log(f"  configs/env.config + policy.config: scenario {env.scenario}, "
+        f"{env.human_num} humans in {env.max_humans} slots, robot radius "
+        f"{env.robot_radius}, robot_nx {mpc.robot_nx}, hum_model "
+        f"{mpc.hum_model}, horizon {mpc.horiz}, config_hash {digest}")
+    assert env.scenario == "hallway_bottleneck" and env.human_num == 3
+    assert mpc.robot_nx == 4 and mpc.hum_model == "orca_casadi_kkt"
+    assert len(digest) == 32
+
+
+def tools_simple(K, device, n_iter, debug_steps, out_dir):
+    """simple_test_torch.py: the DWA episode to its end, then the fused
+    controller's debug steps; returns the kernel's launches."""
+    import pickle
+
+    import numpy as np
+    ST = _script("simple_test_torch")
+    dwa_pkl = os.path.join(out_dir, "dwa.pkl")
+    t0 = time.perf_counter()
+    summary, _ = _captured(ST.main, [
+        "--policy", "dwa", "--hallway_bottleneck", "--env_config",
+        os.path.join(ROOT, "configs", "env.config"), "--output_pickle",
+        dwa_pkl, "--device", str(device)])
+    with open(dwa_pkl, "rb") as f:
+        assert pickle.load(f) == summary
+    log(f"  simple_test --policy dwa --env_config configs/env.config, case "
+        f"0: success {summary['success']}, timeout {summary['timeout']}, "
+        f"{summary['steps']} steps, nav time {summary['nav_time']:.2f} s, "
+        f"collisions {summary['collisions']}, wall "
+        f"{time.perf_counter() - t0:.2f} s")
+    assert summary["steps"] >= 1 and (summary["success"] or
+                                      summary["timeout"])
+
+    dbg_pkl = os.path.join(out_dir, "debug.pkl")
+    t0 = time.perf_counter()
+    (summary, _), launches, ranked = _kde_path(K, lambda: _captured(
+        ST.main, ["--policy", "sicnav_diffusion", "--checkpoint", WEIGHTS,
+                  "--debug_pickle", dbg_pkl, "--ipm_iters", str(n_iter),
+                  "--device", str(device)], max_steps=debug_steps))
+    wall = time.perf_counter() - t0
+    with open(dbg_pkl, "rb") as f:
+        dbg = pickle.load(f)
+    solves = dbg["solves"]
+    assert len(solves) == debug_steps and dbg["summary"] == summary
+    for s in solves:
+        assert set(s) == DEBUG_KEYS, set(s) ^ DEBUG_KEYS
+        for k, v in s["trace"].items():
+            assert v.shape == (n_iter,) and np.isfinite(v).all(), (k, v)
+    _held(K, device, ranked, launches, PROTOCOL_KDE_SHAPE, debug_steps)
+    worst = [(s["worst"]["row"], f"{s['worst']['value']:.3e}")
+             for s in solves]
+    log(f"  simple_test --policy sicnav_diffusion --debug_pickle, "
+        f"{debug_steps} steps at {n_iter} IPM iterations: {wall:.2f} s; "
+        f"solves used the guess {[s['used_guess'] for s in solves]}, "
+        f"final merit {[float(s['trace']['merit'][-1]) for s in solves]}, "
+        f"worst rows {worst}; {launches} kde_loglik launches on "
+        f"{tuple(ranked[0][0].shape)}")
+    return launches
+
+
+def tools_audit(K, device, n_iter, n_cases, out_dir):
+    """suite_audit_torch.py on n_cases cases as one batch, then its resume;
+    returns the kernel's launches."""
+    import shutil
+    from sicnav_tpu_torch import harness
+    from sicnav_tpu_torch.env.rollout import EpisodeStats
+    import numpy as np
+    SA = _script("suite_audit_torch")
+    CT = _script("collision_taxonomy_torch")
+    TT = _script("timeout_taxonomy_torch")
+    resume = os.path.join(out_dir, "audit")
+    shutil.rmtree(resume, ignore_errors=True)
+    argv = ["--policy", "sicnav_diffusion", "--checkpoint", WEIGHTS,
+            "--num_cases", str(n_cases), "--batch", str(n_cases),
+            "--time_limit", str(TOOLS_AUDIT_TIME), "--ipm_iters",
+            str(n_iter), "--resume_dir", resume, "--device", str(device)]
+    steps = int(TOOLS_AUDIT_TIME / 0.25) + 2
+    t0 = time.perf_counter()
+    (report, text), launches, ranked = _kde_path(
+        K, lambda: _captured(SA.main, argv))
+    wall = time.perf_counter() - t0
+    assert json.loads(text) == json.loads(json.dumps(report))
+    _held(K, device, ranked, launches, (8 * n_cases, 48, 6), steps)
+
+    z = np.load(os.path.join(resume, "batch_00000.npz"))
+    stats = EpisodeStats(**{k: z[f"s_{k}"] for k in EpisodeStats._fields})
+    cfg = dataclasses.replace(protocol_env(), time_limit=TOOLS_AUDIT_TIME)
+    assert report["summary"] == harness.summarize(stats, cfg), \
+        report["summary"]
+    for kind, rows, counts, names in (
+            ("collision", "collision_episodes", "collision_classes",
+             CT.COLLISION_CLASSES),
+            ("wall", "wall_episodes", "wall_classes", CT.COLLISION_CLASSES),
+            ("timeout", "timeout_episodes", "timeout_classes",
+             TT.TIMEOUT_CLASSES)):
+        cases = [r["case"] for r in report[rows]]
+        assert len(cases) == len(set(cases)), (kind, cases)
+        assert sum(report[counts].values()) == len(cases), (kind, report[counts])
+        for r in report[rows]:
+            assert r["class"] in names, r["class"]
+    assert report["n_timeouts"] == len(report["timeout_episodes"]) == \
+        int(stats.timeout.sum())
+    assert len(report["collision_episodes"]) == \
+        int((stats.collision_steps > 0).sum())
+    log(f"  suite_audit --policy sicnav_diffusion, {n_cases} cases as one "
+        f"batch, {steps} traced steps at {n_iter} IPM iterations: "
+        f"{wall:.2f} s; summary success {report['summary']['success_rate']}"
+        f", timeout {report['summary']['timeout_rate']}; timeout classes "
+        f"{report['timeout_classes']}, collision classes "
+        f"{report['collision_classes']}, wall classes "
+        f"{report['wall_classes']}; cascade guess step freq "
+        f"{report['frozen_audit']['cascade_guess_step_freq']:.3f}; "
+        f"{launches} kde_loglik launches on {tuple(ranked[0][0].shape)}")
+
+    t0 = time.perf_counter()
+    (again, _), relaunches, reranked = _kde_path(
+        K, lambda: _captured(SA.main, argv))
+    log(f"  the same call again from --resume_dir: {time.perf_counter() - t0:.2f}"
+        f" s, {relaunches} launches, {len(reranked)} forecasts, report "
+        f"{'equal' if again == report else 'DIFFERENT'}")
+    assert relaunches == 0 and not reranked and again == report
+    return launches
+
+
+def tools_bench(K, device, n_iter, reps):
+    """bench_control_step_torch.py's rows; returns the kernel's
+    launches."""
+    BC = _script("bench_control_step_torch")
+    args = BC.parse_args(["--ipm_iters", str(n_iter), "--device",
+                          str(device)])
+    t0 = time.perf_counter()
+    (out, ocp), launches, ranked = _kde_path(
+        K, lambda: BC.measure(args, torch.device(device), reps=reps))
+    log(f"  bench_control_step ({reps} calls a row, {n_iter} IPM "
+        f"iterations): {json.dumps(out)}; {time.perf_counter() - t0:.2f} s;"
+        f" {launches} kde_loglik launches")
+    assert out["kkt_dim"] == ocp.cfg.n_z + ocp.n_eq == TOOLS_KKT_DIM, \
+        (out["kkt_dim"], ocp.cfg.n_z, ocp.n_eq)
+    for k in ("forecast_ms", "campc_solve_ms", "fused_step_ms",
+              "kkt_solve_1x_ms", "kkt_solve_16x_ms"):
+        assert math.isfinite(out[k]) and out[k] > 0, (k, out[k])
+    # the forecast row and the fused row: a warm-up call and reps calls
+    _held(K, device, ranked, launches, PROTOCOL_KDE_SHAPE, 2 * (reps + 1))
+    return launches
+
+
+def phase_tools(K, device="cuda", n_iter=MPC_IPM_ITERS,
+                debug_steps=TOOLS_DEBUG_STEPS, n_cases=TOOLS_AUDIT_CASES,
+                bench_reps=TOOLS_BENCH_REPS, out_dir=None):
+    """The configs, the single-episode runner, the suite audit and the
+    control-step decomposition (config, simple, audit, bench). The keyword
+    arguments exist for the CPU rehearsal (tests/test_torch_tools_phase.py).
+    Returns the kernel's launches on the phase's paths. Logs each part's
+    seconds."""
+    out_dir = out_dir or os.path.join(ROOT, "build", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        log(f"  [{name}] {t1 - t0:.2f} s")
+        t0 = t1
+
+    tools_config()
+    part("config")
+    launches = tools_simple(K, device, n_iter, debug_steps, out_dir)
+    part("simple")
+    launches += tools_audit(K, device, n_iter, n_cases, out_dir)
+    part("audit")
+    launches += tools_bench(K, device, n_iter, bench_reps)
+    part("bench")
+    return launches
+
+
 def state_tc(recipe, batch_size):
     """The recipe's TrainConfig at the batch size the data reached."""
     return dataclasses.replace(recipe.train, batch_size=batch_size)
@@ -2908,6 +3172,8 @@ def main():
         entry["launches_by_path"]["imid"] = phase_imid(K)
     with Phase("observe"):
         entry["launches_by_path"]["observe"] = phase_observe(K)
+    with Phase("tools"):
+        entry["launches_by_path"]["tools"] = phase_tools(K)
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)

@@ -153,6 +153,19 @@ def generate_sim_scenes(n_scenes, cfg, seed=0, steps=60, multi_class=False,
     return examples
 
 
+def split_examples(examples, seed, val_examples=None):
+    """(val, train): ``examples`` shuffled in place by a numpy generator
+    seeded ``seed`` and the first tenth (at least one) held out; with
+    ``val_examples`` those, shuffled next, and every example trains."""
+    rng = np.random.default_rng(seed)
+    rng.shuffle(examples)
+    if val_examples is not None:
+        rng.shuffle(val_examples)
+        return val_examples, examples
+    n_val = max(len(examples) // 10, 1)
+    return examples[:n_val], examples[n_val:]
+
+
 def load_files(files, dt=0.4, history_len=6, horizon=8):
     from sicnav_tpu_torch.diffusion import data as D
     out = []
@@ -281,14 +294,7 @@ def main(argv=None):
                                        class_mode=args.class_mode,
                                        device=device)
 
-    rng = np.random.default_rng(args.seed)
-    rng.shuffle(examples)
-    if val_examples is not None:
-        rng.shuffle(val_examples)
-        val, train = val_examples, examples
-    else:
-        n_val = max(len(examples) // 10, 1)
-        val, train = examples[:n_val], examples[n_val:]
+    val, train = split_examples(examples, args.seed, val_examples)
 
     if recipe is not None:
         model = JMIDModel(dataclasses.replace(recipe.model,

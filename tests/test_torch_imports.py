@@ -35,7 +35,16 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "sicnav_tpu"}
 SCRIPTS = [ROOT / "scripts" / name for name in (
     "eval_suite_torch.py", "train_jmid_torch.py", "eval_prediction_torch.py",
     "train_rl_torch.py", "synthesize_ethucy_torch.py",
-    "process_data_torch.py", "real_robot_loop_torch.py")]
+    "process_data_torch.py", "real_robot_loop_torch.py",
+    "simple_test_torch.py", "eval_sicnav_diffusion_torch.py",
+    "bench_control_step_torch.py", "audit_common_torch.py",
+    "collision_taxonomy_torch.py", "timeout_taxonomy_torch.py",
+    "suite_audit_torch.py", "sweep_ipm_iters_torch.py",
+    "summarize_progress_torch.py", "eval_dispatch_paired_torch.py")]
+# the reference's script modules, which the port's scripts keep twins of
+REFERENCE_SCRIPTS = {"audit_common", "collision_taxonomy",
+                     "timeout_taxonomy", "eval_suite", "train_jmid",
+                     "simple_test", "bench_control_step", "suite_audit"}
 # imported only inside the function that needs it, never at import time
 CALL_TIME_ONLY = {"dill"}
 PY_FILES = sorted(PKG.rglob("*.py")) + [
@@ -127,6 +136,24 @@ def test_scan_covers_the_observation_path():
     assert "scripts/real_robot_loop_torch.py" in scanned
 
 
+def test_scan_covers_the_tools_slice():
+    """The configs, occlusion, rendering and the analysis scripts are among
+    the files scanned, and no port script imports a reference script."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("config", "env/occlusion", "utils/render"):
+        assert f"sicnav_tpu_torch/{name}.py" in scanned, name
+    for name in ("simple_test", "eval_sicnav_diffusion",
+                 "bench_control_step", "audit_common", "collision_taxonomy",
+                 "timeout_taxonomy", "suite_audit", "sweep_ipm_iters",
+                 "summarize_progress", "eval_dispatch_paired"):
+        assert f"scripts/{name}_torch.py" in scanned, name
+    for p in SCRIPTS:
+        assert not _imported_roots(p) & REFERENCE_SCRIPTS, p
+    render = PKG / "utils" / "render.py"
+    assert "matplotlib" in _imported_roots(render)
+    assert "matplotlib" not in _imported_roots(render, module_level=True)
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import os\nfrom sicnav_tpu.ops import orca\n")
@@ -151,8 +178,18 @@ def test_package_holds_source_only():
 
 
 def test_entry_points_default_to_cuda():
+    from types import SimpleNamespace
+
+    import bench_control_step_torch
+    import collision_taxonomy_torch
+    import eval_dispatch_paired_torch
     import eval_prediction_torch
+    import eval_sicnav_diffusion_torch
     import eval_suite_torch
+    import simple_test_torch
+    import suite_audit_torch
+    import sweep_ipm_iters_torch
+    import timeout_taxonomy_torch
     import real_robot_loop_torch
     import synthesize_ethucy_torch
     import train_jmid_torch
@@ -194,6 +231,15 @@ def test_entry_points_default_to_cuda():
         lambda: StreamingController(cfg, None),
         lambda: real_robot_loop_torch.main([]),
         lambda: eval_suite_torch.main(["--policy", "campc"]),
+        lambda: simple_test_torch.main(["--policy", "dwa"]),
+        lambda: eval_sicnav_diffusion_torch.main([]),
+        lambda: bench_control_step_torch.main([]),
+        lambda: suite_audit_torch.main([]),
+        lambda: collision_taxonomy_torch.main([]),
+        lambda: timeout_taxonomy_torch.main([]),
+        lambda: eval_dispatch_paired_torch.main([]),
+        lambda: sweep_ipm_iters_torch.measure_latency(
+            2, SimpleNamespace(device=None)),
     ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
