@@ -182,6 +182,40 @@ Phases, in order; each prints one line with its own seconds:
             widths with TOOLS_BENCH_REPS calls each, kkt_dim the fused
             OCP's n_z + n_eq (TOOLS_KKT_DIM); the kernel on its forecast
             and fused rows held against the plain version.
+15. mesh    the data-parallel mesh on torch.distributed, MESH_RANKS ranks
+            sharing the card over gloo (NCCL only with a card per rank):
+            the backend, the world size and each rank's device. native:
+            the native ORCA oracle built by g++ into build/native/, and
+            ops/orca on the card held to it on tests/test_native.py's 40
+            agent and 40 wall scenes (ORCA_NATIVE_TOL per agent, at most
+            ORCA_WALL_MISMATCHES walls over it). entry: entry()'s JMID
+            forward on the card against the CPU (MESH_ENTRY_TOL). dryrun:
+            entry.dryrun_multichip(MESH_RANKS) (env + DWA, a JMID train
+            step, a SARL DQN step, a fleet CAMPC step). harness:
+            harness.evaluate_policy(mesh=) of the fused controller (the
+            protocol, the trained weights) over cases 0..MESH_CASES-1 as
+            one batch, each rank stepping its share for MESH_TIME s (4
+            steps) at MESH_IPM_ITERS IPM iterations, held to the
+            one-process run at each rank's share as its batch (run here
+            beside the ranks, and the dryrun beside both): every
+            case's outcome counts equal, times within MESH_TIME_TOL; each
+            rank's kernel launched once per step on (8 * share, 48, 6), its
+            inputs held against the float64 plain version in the rank; the
+            launches summed over the ranks. bench:
+            scripts/bench_fleet_scaling_torch.py's rows at 1 and
+            MESH_RANKS ranks (batch MESH_BENCH_BATCH, MESH_BENCH_ITERS IPM
+            iterations, MESH_BENCH_REPS timed steps a row).
+
+Phases 8 (batch, with its profiled step) and 14 (tools), and phases 12, 13
+and 15 (imid, observe, mesh), run in two more processes (``chip_smoke.py
+--late PHASES OUT``), started after phase 3 and run beside the others; their
+lines are relayed behind their phases' names, and each writes the kernel's
+launches on its paths, and what the batch phase measured, to OUT. Phase
+``late`` waits for both (until LATE_DEADLINE_S from the start), takes the
+launches in and holds the batched step's launches to the unbatched step's.
+Each process resets the kernel's count just before each of its paths and
+reads it just after; a failure in any process fails the run, and every
+process started is ended before the script exits.
 
 Then a JSON line listing every kernel, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any failed
@@ -189,15 +223,18 @@ check raises, so the script exits non-zero and prints no result; without a
 CUDA device it exits 1 at once.
 """
 
+import concurrent.futures
 import dataclasses
 import functools
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -325,6 +362,25 @@ TOOLS_AUDIT_CASES = 2       # suite_audit cases, one batch
 TOOLS_AUDIT_TIME = 1.0      # s: 1.0 / 0.25 + 2 = 6 traced batched steps
 TOOLS_BENCH_REPS = 2        # calls per bench_control_step row (CLI: 20)
 TOOLS_KKT_DIM = 317         # n_z + n_eq of the protocol's fused OCP
+MESH_RANKS = 2              # ranks of the mesh phase, sharing the card
+MESH_CASES = 4              # protocol cases 0-3 through the sharded harness
+MESH_TIME = 0.5             # s: 0.5 / 0.25 + 2 = 4 batched control steps
+MESH_IPM_ITERS = GATE_SHORT_ITERS
+MESH_TIME_TOL = 1e-5        # the sharded summary's times against one process
+MESH_ENTRY_TOL = 1e-4       # entry()'s forward, card vs CPU
+MESH_BENCH_BATCH = 4        # bench_fleet_scaling_torch.py at 1 and 2 ranks
+MESH_BENCH_ITERS = 3
+MESH_BENCH_REPS = 1
+# The late phases run in two more processes, `chip_smoke.py --late PHASES
+# OUT`, started once the kernels phase has timed the kernel on an idle card,
+# beside the other phases: each process drives the card from a host core of
+# its own, and the card is busy under 10 % of an MPC step (PERF.md
+# section 5). The batch phase's launches per step are held to the unbatched
+# step's in this process, once its late process has ended.
+LATE_GROUPS = (("batch", "tools"), ("imid", "observe", "mesh"))
+LATE_DEADLINE_S = 1140      # s from the start; the late processes end by then
+ORCA_NATIVE_TOL = 2e-3      # tests/test_native.py: per agent
+ORCA_WALL_MISMATCHES = 2    # tests/test_native.py: of the 40 wall scenes
 DEBUG_KEYS = {"step", "trace", "info", "viol_sol", "viol_used", "used_guess",
               "sol_cost", "guess_cost", "slack_max", "worst"}
 # NVIDIA H100 SXM data sheet: HBM bandwidth and float32 rate outside the
@@ -333,8 +389,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(msg):
-    print(msg, flush=True)
+    # one write per line: the late process's relayed lines share stdout
+    with _LOG_LOCK:
+        sys.stdout.write(f"{msg}\n")
+        sys.stdout.flush()
 
 
 class Phase:
@@ -3103,9 +3165,336 @@ def phase_tools(K, device="cuda", n_iter=MPC_IPM_ITERS,
     return launches
 
 
+def orca_scenes(rng, n_scenes=40):
+    """tests/test_native.py's scenes: n_scenes crowds of 2-6 agents, then
+    n_scenes single agents among 1-3 random walls, as (pos, vel, rad,
+    pref_vel, max_speed, walls) tuples."""
+    agents, walls = [], []
+    for _ in range(n_scenes):
+        n = rng.integers(2, 7)
+        agents.append((rng.uniform(-4, 4, (n, 2)), rng.uniform(-1, 1, (n, 2)),
+                       rng.uniform(0.2, 0.5, n),
+                       rng.uniform(-1.2, 1.2, (n, 2)),
+                       rng.uniform(0.8, 1.6, n), None))
+    for _ in range(n_scenes):
+        pos, vel = rng.uniform(-3, 3, (1, 2)), rng.uniform(-1, 1, (1, 2))
+        rad, pref, ms = [0.3], rng.uniform(-1, 1, (1, 2)), [1.2]
+        segs = []
+        for _ in range(rng.integers(1, 4)):
+            a = rng.uniform(-3, 3, 2)
+            segs.append((a, a + rng.uniform(-2, 2, 2)))
+        walls.append((pos, vel, rad, pref, ms, segs))
+    return agents, walls
+
+
+def mesh_native(device):
+    """The native ORCA oracle built with g++, and the port's batched ORCA
+    on ``device`` held to it on tests/test_native.py's scenes."""
+    import numpy as np
+    from sicnav_tpu_torch.native import orca_cpp
+    t0 = time.perf_counter()
+    lib = orca_cpp.build_library()
+    log(f"  native oracle {lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    agents, walls = orca_scenes(np.random.default_rng(0))
+    worst = 0.0
+    for scene in agents:
+        want = orca_cpp.orca_step_native(*scene)
+        got = orca_cpp.orca_step_torch(*scene, device=device)
+        worst = max(worst, float(np.linalg.norm(got - want, axis=-1).max()))
+    errs = [float(np.linalg.norm(orca_cpp.orca_step_torch(*scene,
+                                                          device=device) -
+                                 orca_cpp.orca_step_native(*scene)))
+            for scene in walls]
+    bad = sum(e > ORCA_NATIVE_TOL for e in errs)
+    log(f"  ops/orca on {device} against the native oracle: "
+        f"{len(agents)} agent scenes, largest error {worst:.3e} (bound "
+        f"{ORCA_NATIVE_TOL}); {len(walls)} wall scenes, {bad} over the "
+        f"bound (at most {ORCA_WALL_MISMATCHES}), largest {max(errs):.3e}")
+    assert worst < ORCA_NATIVE_TOL, worst
+    assert bad <= ORCA_WALL_MISMATCHES, errs
+
+
+def mesh_entry(device):
+    """entry()'s forward on ``device`` against the same on the CPU (the
+    same parameters: both drawn from seed 0 on the CPU)."""
+    from sicnav_tpu_torch.entry import entry
+    fn, args = entry(device)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    fn_cpu, args_cpu = entry("cpu")
+    want = fn_cpu(*args_cpu)
+    err = (out.cpu() - want).abs().max().item()
+    log(f"  entry(): JMID forward of 4 scenes {tuple(out.shape)} in "
+        f"{1e3 * wall:.2f} ms (first call); against the CPU max_abs_err "
+        f"{err:.3e} (bound {MESH_ENTRY_TOL})")
+    assert torch.isfinite(out).all() and err <= MESH_ENTRY_TOL, err
+
+
+def mesh_dryrun(device, ranks):
+    """entry.dryrun_multichip over ``ranks`` ranks on ``device``."""
+    from sicnav_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    out = dryrun_multichip(ranks, device)
+    m = out["mesh"]
+    log(f"  dryrun_multichip({ranks}): backend {m['backend']}, world size "
+        f"{m['size']}, rank devices {m['devices']}; env + DWA mean reward "
+        f"{out['env_dwa']['mean_reward']:.4f}, JMID loss "
+        f"{out['jmid_train']['loss']:.4f}, SARL loss "
+        f"{out['sarl_train']['loss']:.4f}, fleet mean |action| "
+        f"{out['fleet']['mean_abs_action']:.4f}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    assert m["size"] == ranks
+    return m
+
+
+def _case_stats(path):
+    """Every case's stats of a harness progress file, in case order."""
+    import numpy as np
+    from sicnav_tpu_torch import harness
+    from sicnav_tpu_torch.env.rollout import EpisodeStats
+    done = harness._load_progress(path)
+    return EpisodeStats(*[np.concatenate([np.atleast_1d(getattr(done[k], f))
+                                          for k in sorted(done)])
+                          for f in EpisodeStats._fields])
+
+
+def mesh_harness(device, ranks, n_cases, n_iter, time_limit, out_dir):
+    """harness.evaluate_policy of the fused controller over protocol cases
+    0..n_cases-1 sharded over ``ranks`` ranks, held to the one-process run
+    at each rank's share as its batch (so that every solve has the same
+    batch width). Returns the kernel's launches summed over the ranks."""
+    import numpy as np
+    from sicnav_tpu_torch.parallel import dryrun as DR
+    from sicnav_tpu_torch.parallel.mesh import launch, make_mesh
+    files = [os.path.join(out_dir, f"{name}.jsonl") for name in ("mesh", "one")]
+    for f in files:
+        if os.path.exists(f):
+            os.remove(f)
+    steps = int(time_limit / 0.25) + 2
+    share = n_cases // ranks
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        return fn(*args, **kwargs), time.perf_counter() - t0
+
+    threads = torch.get_num_threads()
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)     # as each CPU rank runs
+    try:
+        # the one-process run in a thread here, beside the ranks: checks,
+        # not timings
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            one = pool.submit(timed, DR.harness_protocol,
+                              make_mesh(device=device), WEIGHTS, n_cases,
+                              share, n_iter, time_limit, files[1])
+            # one batch of n_cases: each rank steps its n_cases / ranks
+            sharded, wall = timed(launch, DR.harness_protocol, ranks,
+                                  WEIGHTS, n_cases, n_cases, n_iter,
+                                  time_limit, files[0], device=device)
+            one, wall_one = one.result()
+    finally:
+        torch.set_num_threads(threads)
+    per_rank = sharded["per_rank"]
+    log(f"  evaluate_policy(mesh=) of the fused controller, cases 0-"
+        f"{n_cases - 1}, {steps} steps at {n_iter} IPM iterations: backend "
+        f"{sharded['backend']}, rank devices {sharded['devices']}, "
+        f"{wall:.2f} s (the ranks' start included); one process at batch "
+        f"{share}: {wall_one:.2f} s (the two at once)")
+    log(f"  sharded: {json.dumps(sharded['summary'])}")
+    log(f"  one process: {json.dumps(one['summary'])}")
+    got, want = _case_stats(files[0]), _case_stats(files[1])
+    flags = ("success", "timeout", "collision_steps", "wall_collision_steps",
+             "frozen_steps", "steps")
+    for name in got._fields:
+        a, b = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
+        diff = a != b if name in flags else np.abs(
+            a.astype(np.float64) - b) > MESH_TIME_TOL
+        if diff.any():
+            log(f"  case stat {name} differs in cases "
+                f"{np.flatnonzero(diff).tolist()}: sharded {a.tolist()}, "
+                f"one process {b.tolist()}")
+    for k, v in one["summary"].items():
+        assert abs(sharded["summary"][k] - v) <= MESH_TIME_TOL, (k, v)
+    for name in flags:
+        assert np.array_equal(getattr(got, name), getattr(want, name)), name
+    for r, (launches, n_inputs, err) in enumerate(per_rank.tolist()):
+        log(f"  rank {r}: {launches:.0f} kde_loglik launches on "
+            f"{sharded['kde_shapes']}, {n_inputs:.0f} inputs held to the "
+            f"float64 plain version, max_abs_err {err:.3e} (bound "
+            f"rtol=atol={KDE_TOL})")
+        assert n_inputs == steps, (r, n_inputs, steps)
+        if torch.device(device).type == "cuda":
+            assert launches == steps, (r, launches, steps)
+    assert sharded["kde_shapes"] == [(8 * share, 48, 6)]
+    return int(per_rank[:, 0].sum().item())
+
+
+def mesh_bench(device, batch, iters, reps):
+    """bench_fleet_scaling_torch.py's rows at 1 and MESH_RANKS ranks."""
+    BF = _script("bench_fleet_scaling_torch")
+    args = BF.parse_args(["--devices", "1", str(MESH_RANKS), "--batch",
+                          str(batch), "--iters", str(iters), "--reps",
+                          str(reps), "--device", str(device)])
+    t0 = time.perf_counter()
+    rows, _ = _captured(BF.measure, args)
+    for r in rows:
+        log(f"  bench_fleet_scaling: {json.dumps(r)}")
+        assert math.isfinite(r["solves_per_s"]) and r["solves_per_s"] > 0
+    log(f"  bench_fleet_scaling at batch {batch}, {iters} IPM iterations, "
+        f"{reps} timed steps a row: {time.perf_counter() - t0:.2f} s")
+    assert [r["devices"] for r in rows] == [1, MESH_RANKS]
+
+
+def phase_mesh(K, device="cuda", n_iter=MESH_IPM_ITERS, time_limit=MESH_TIME,
+               n_cases=MESH_CASES, bench_batch=MESH_BENCH_BATCH,
+               bench_iters=MESH_BENCH_ITERS, bench_reps=MESH_BENCH_REPS,
+               out_dir=None):
+    """The native ORCA oracle, entry(), the multi-rank dryrun, the sharded
+    harness of the fused controller and the fleet bench (native, entry,
+    dryrun, harness, bench), with MESH_RANKS ranks sharing the device. The
+    keyword arguments exist for the CPU rehearsal
+    (tests/test_torch_mesh_phase.py). Returns the kernel's launches summed
+    over the ranks. Logs each part's seconds."""
+    from sicnav_tpu_torch.parallel.mesh import plan
+    out_dir = out_dir or os.path.join(ROOT, "build", "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    backend, devices = plan(MESH_RANKS, device)
+    log(f"  {MESH_RANKS} ranks: backend {backend} (NCCL needs a card per "
+        f"rank; {torch.cuda.device_count()} card(s) here), rank devices "
+        f"{[str(d) for d in devices]}")
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        t1 = time.perf_counter()
+        log(f"  [{name}] {t1 - t0:.2f} s")
+        t0 = t1
+
+    mesh_native(device)
+    part("native")
+    mesh_entry(device)
+    part("entry")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the dryrun's ranks beside the harness's: neither is timed
+        dry = pool.submit(mesh_dryrun, device, MESH_RANKS)
+        launches = mesh_harness(device, MESH_RANKS, n_cases, n_iter,
+                                time_limit, out_dir)
+        dry.result()
+    part("dryrun + harness")
+    mesh_bench(device, bench_batch, bench_iters, bench_reps)
+    part("bench")
+    return launches
+
+
 def state_tc(recipe, batch_size):
     """The recipe's TrainConfig at the batch size the data reached."""
     return dataclasses.replace(recipe.train, batch_size=batch_size)
+
+
+def run_late(K, phases):
+    """The named late phases in order. Returns the kernel's launches on
+    each path and, with phase batch, its batched step's seconds and its
+    profiled step's launches."""
+    by_name = {"tools": phase_tools, "imid": phase_imid,
+               "observe": phase_observe, "mesh": phase_mesh}
+    result = {"launches_by_path": {}}
+    for name in phases:
+        with Phase(name):
+            if name == "batch":
+                ocp, model, settings, final, n = phase_batch(K,
+                                                             measured=result)
+                result["batch_launches_per_step"] = phase_profile_batch(
+                    ocp, model, settings, final)
+            else:
+                n = by_name[name](K)
+            result["launches_by_path"][name] = n
+    return result
+
+
+def _exit_on_term(signum, frame):
+    # unwinds, so that finally blocks end the processes this one started
+    sys.exit(128 + signum)
+
+
+def late_main(phases, out):
+    """``chip_smoke.py --late PHASES OUT``: the late phases named (comma
+    separated) in this process, on the kernel library main built; what
+    ``run_late`` returns goes to the JSON file OUT."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import ctypes
+    signal.signal(signal.SIGTERM, _exit_on_term)
+    # PR_SET_PDEATHSIG: SIGTERM here when the process that started this one
+    # ends, however it ends
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM)
+    from sicnav_tpu_torch.ops import build
+    from sicnav_tpu_torch.ops import kde_cuda as K
+    build.load_library()
+    result = run_late(K, phases.split(","))
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+class Beside:
+    """A process started beside this one in a session of its own: its
+    output lines are relayed through ``log`` behind ``prefix``, and it
+    writes its result as JSON to ``out``."""
+
+    def __init__(self, argv, out, prefix):
+        self.out, self.prefix = out, prefix
+        if os.path.exists(out):
+            os.remove(out)
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, cwd=ROOT, start_new_session=True,
+            env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        self.relay = threading.Thread(target=self._relay, daemon=True)
+        self.relay.start()
+
+    def _relay(self):
+        for line in self.proc.stdout:
+            log(self.prefix + line.rstrip("\n"))
+
+    def join(self, timeout):
+        """Waits up to ``timeout`` s for the process and returns its JSON;
+        raises if it failed or is still running."""
+        try:
+            rc = self.proc.wait(timeout=max(timeout, 0.0))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"{self.proc.args} was still running after "
+                               f"the deadline") from None
+        self.relay.join()
+        if rc != 0:
+            raise RuntimeError(f"{self.proc.args} failed (exit code {rc})")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self):
+        """Ends the process and every process of its session."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        self.relay.join(timeout=5)
+
+
+def start_late(phases):
+    """``chip_smoke.py --late`` for ``phases``, beside this process."""
+    out = os.path.join(ROOT, "build", f"late_{'_'.join(phases)}.json")
+    return Beside([sys.executable, os.path.abspath(__file__), "--late",
+                   ",".join(phases), out], out, "+".join(phases) + " | ")
 
 
 def main():
@@ -3115,6 +3504,7 @@ def main():
     from sicnav_tpu_torch.ops import build
     from sicnav_tpu_torch.ops import kde_cuda as K
 
+    signal.signal(signal.SIGTERM, _exit_on_term)
     t_start = time.perf_counter()
     with Phase("device"):
         smi = nvidia_smi()
@@ -3132,48 +3522,59 @@ def main():
         check_ptxas(build.build_log)
     with Phase("kernels"):
         entry = phase_kernels(K)
-    with Phase("slice"):
-        model, slice_launches = phase_slice(K)
-    measured = {}
-    with Phase("mpc"):
-        ocp, mpc_model, settings, record, mpc_launches = phase_mpc(
-            K, measured=measured)
-    with Phase("cross"):
-        phase_cross(model)
-        phase_cross_mpc(ocp, record, settings)
-    with Phase("profile"):
-        phase_profile(model)
-        per_step = phase_profile_mpc(ocp, mpc_model, settings)
-        if per_step is not None:
-            log(f"  [mpc] launches per control step: {per_step:.0f}")
-    with Phase("batch"):
-        ocp_b, _, settings_b, final, batch_launches = phase_batch(
-            K, measured=measured)
-        per_step_b = phase_profile_batch(ocp_b, mpc_model, settings_b, final)
-        assert per_step is not None, "no unbatched launch count to hold to"
-        log(f"  [batch] launches per batched control step: {per_step_b}, "
-            f"{per_step_b / per_step:.3f}x the unbatched step's {per_step:.0f}"
-            f" (bound {BATCH_LAUNCH_RATIO}x)")
-        assert per_step_b <= BATCH_LAUNCH_RATIO * per_step, (per_step_b,
-                                                             per_step)
-        entry["launches"] = batch_launches
-        entry["launches_by_path"] = {"batch": batch_launches,
-                                     "mpc": mpc_launches,
-                                     "slice": slice_launches}
-    with Phase("harness"):
-        phase_harness()
-    with Phase("train"):
-        entry["launches_by_path"]["train"] = phase_train(K)
-    with Phase("rl"):
-        K.kde_loglik.launches = 0
-        phase_rl()
-        entry["launches_by_path"]["rl"] = K.kde_loglik.launches
-    with Phase("imid"):
-        entry["launches_by_path"]["imid"] = phase_imid(K)
-    with Phase("observe"):
-        entry["launches_by_path"]["observe"] = phase_observe(K)
-    with Phase("tools"):
-        entry["launches_by_path"]["tools"] = phase_tools(K)
+    lates = []
+    try:
+        for phases in LATE_GROUPS:
+            lates.append(start_late(phases))
+            log(f"  phases {', '.join(phases)} started beside this process "
+                f"(pid {lates[-1].proc.pid}); their lines begin "
+                f"{lates[-1].prefix!r}")
+        with Phase("slice"):
+            model, slice_launches = phase_slice(K)
+        measured = {}
+        with Phase("mpc"):
+            ocp, mpc_model, settings, record, mpc_launches = phase_mpc(
+                K, measured=measured)
+        with Phase("cross"):
+            phase_cross(model)
+            phase_cross_mpc(ocp, record, settings)
+        with Phase("profile"):
+            phase_profile(model)
+            per_step = phase_profile_mpc(ocp, mpc_model, settings)
+            if per_step is not None:
+                log(f"  [mpc] launches per control step: {per_step:.0f}")
+        by_path = {"mpc": mpc_launches, "slice": slice_launches}
+        with Phase("harness"):
+            phase_harness()
+        with Phase("train"):
+            by_path["train"] = phase_train(K)
+        with Phase("rl"):
+            K.kde_loglik.launches = 0
+            phase_rl()
+            by_path["rl"] = K.kde_loglik.launches
+        with Phase("late"):
+            batch = {}
+            for late in lates:
+                result = late.join(
+                    LATE_DEADLINE_S - (time.perf_counter() - t_start))
+                by_path.update(result.pop("launches_by_path"))
+                batch.update(result)
+            assert per_step is not None, "no unbatched launch count to hold to"
+            per_step_b = batch["batch_launches_per_step"]
+            log(f"  [batch] launches per batched control step: {per_step_b}, "
+                f"{per_step_b / per_step:.3f}x the unbatched step's "
+                f"{per_step:.0f} (bound {BATCH_LAUNCH_RATIO}x)")
+            assert per_step_b <= BATCH_LAUNCH_RATIO * per_step, (per_step_b,
+                                                                 per_step)
+            b1, rate = measured["b1_step_s"], BATCH / batch["batch_step_s"]
+            log(f"  [batch] {rate:.4f} episode-steps/s at B = {BATCH}; B = 1 "
+                f"(mpc phase): {1 / b1:.4f} episode-steps/s, "
+                f"{rate * b1:.2f}x")
+    finally:
+        for late in lates:
+            late.stop()
+    entry["launches"] = by_path["batch"]
+    entry["launches_by_path"] = by_path
     log(f"total {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": [entry]}))
     print(smi)
@@ -3183,4 +3584,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--late"]:
+        sys.exit(late_main(*sys.argv[2:4]))
     sys.exit(main())

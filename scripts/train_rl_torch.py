@@ -14,8 +14,10 @@ last three history records and the checkpoint's path, each as one JSON
 line. The checkpoint is an ``.npz`` of the port's state_dict, which
 ``scripts/eval_suite_torch.py --policy sarl|rgl --checkpoint`` serves.
 ``--il_epochs`` and ``--log_every`` exist to cut a run short; their
-defaults are the reference's. Runs on CUDA unless ``--device cpu``.
-Imports no JAX.
+defaults are the reference's. ``--mesh N`` trains the DQN in N ranks of
+its own (``parallel.mesh.launch``), each stepping its share of the
+environments from the imitation fit's parameters; rank 0's parameters are
+written. Runs on CUDA unless ``--device cpu``. Imports no JAX.
 """
 
 import argparse
@@ -41,7 +43,9 @@ def parse_args(argv=None):
     p.add_argument("--log_every", type=int, default=200)
     p.add_argument("--out", default=os.path.join("build", "rl.npz"))
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel training over N cards (not ported)")
+                   help="data-parallel DQN over N ranks (parallel.mesh."
+                        "launch: NCCL with a card per rank, else gloo "
+                        "ranks sharing the device)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p.parse_args(argv)
@@ -59,10 +63,6 @@ def env_config(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "train_rl_torch.py --mesh: data-parallel training is not ported "
-            "yet (ROADMAP.md, Queue 1 item 14)")
     from sicnav_tpu_torch.convert import save_npz
     from sicnav_tpu_torch.device import resolve_device
     from sicnav_tpu_torch.rl import dqn as D
@@ -83,14 +83,25 @@ def main(argv=None):
                           "il_loss_first": losses[0],
                           "il_loss_last": losses[-1]}), flush=True)
 
-    _, history = D.train(net, env_cfg, D.DQNConfig(
-        total_timesteps=args.total_timesteps), n_envs=args.n_envs,
-        seed=args.seed, log_every=args.log_every, device=device)
+    dqn = D.DQNConfig(total_timesteps=args.total_timesteps)
+    if args.mesh:
+        from sicnav_tpu_torch.parallel.mesh import launch
+        # the imitation fit above is the ranks' start; rank 0's result is
+        # the one written
+        params, history = launch(
+            D.train_on_mesh, args.mesh, args.model, env_cfg, dqn,
+            args.n_envs, args.seed, None, args.log_every,
+            {k: v.cpu() for k, v in net.state_dict().items()},
+            device=device)
+    else:
+        params, history = D.train(net, env_cfg, dqn, n_envs=args.n_envs,
+                                  seed=args.seed, log_every=args.log_every,
+                                  device=device)
     for rec in history[-3:]:
         print(json.dumps(rec), flush=True)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    save_npz(args.out, net.state_dict())
+    save_npz(args.out, params)
     print(json.dumps({"checkpoint": args.out}), flush=True)
     return 0
 

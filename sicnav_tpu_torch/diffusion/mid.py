@@ -35,6 +35,7 @@ from sicnav_tpu_torch.diffusion.models import (
     ModelConfig, TrajectronEncoder, init_parameters,
     integrate_velocity_samples, make_denoiser, standardize_history,
 )
+from sicnav_tpu_torch.parallel.mesh import all_mean, all_mean_grads
 
 # the reference's integration step for ground-truth futures (mid.py)
 GT_DT = 0.25
@@ -232,18 +233,25 @@ def clip_by_global_norm_(params, max_norm: float):
 
 
 def train_step(model: JMIDModel, state: TrainState, batch: SceneBatch,
-               generator=None, t=None, eps=None):
+               generator=None, t=None, eps=None, mesh=None):
     """One update over a batch with a leading scene axis: the mean over
     scenes of each scene's loss, its gradients clipped, one Adam step and
     one step of the learning-rate schedule. Runs in train mode (dropout
     on) and leaves the model in the mode it found it. Returns the loss, a
-    0-d tensor on the device (not synchronized)."""
+    0-d tensor on the device (not synchronized).
+
+    With ``mesh`` (``parallel.mesh.Mesh``) each rank holds an equal share of
+    the scenes and the same parameters: the gradients and the loss are
+    averaged over the ranks before the clip."""
     was_training = model.training
     model.train()
     try:
         state.optimizer.zero_grad(set_to_none=True)
         loss = model(batch, generator, t, eps).mean()
         loss.backward()
+        if mesh is not None:
+            all_mean_grads(model.parameters(), mesh)
+            loss = all_mean(loss, mesh)
         clip_by_global_norm_(model.parameters(), state.grad_clip)
         state.optimizer.step()
         state.scheduler.step()

@@ -22,6 +22,7 @@ import numpy as np
 from sicnav_tpu_torch.device import resolve_device
 from sicnav_tpu_torch.env import crowd_sim, rollout
 from sicnav_tpu_torch.env.types import EnvConfig
+from sicnav_tpu_torch.parallel.mesh import gather_batch
 
 
 # the dtypes of rollout.EpisodeStats's fields (float32 times, distances and
@@ -92,14 +93,18 @@ def evaluate_policy(policy_fn: Callable, cfg: EnvConfig, num_cases: int = 500,
     ``progress_file``: path to a JSONL checkpoint. Each completed batch is
     appended (fsync'd) and a batch already there with as many cases is
     skipped on rerun, so a long suite resumes by re-running the same
-    command. ``mesh`` (sharding the cases over several cards) is not
-    ported yet.
+    command.
+
+    ``mesh`` (``parallel.mesh.Mesh``, called in every rank of a
+    ``parallel.mesh.launch``) shards each batch of cases over the ranks:
+    the batch is padded up to a multiple of the mesh's size by replaying
+    its last case, each rank resets and rolls out its contiguous rows on
+    its own device, the stats are gathered and the padding sliced out, so
+    every rank returns the summary the same call gives without a mesh.
+    Only rank 0 writes the ``progress_file`` and the log lines.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_policy: sharding cases over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 14)")
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     max_steps = int(cfg.time_limit / cfg.dt) + 2
     completed = _load_progress(progress_file)
     running = None
@@ -111,10 +116,15 @@ def evaluate_policy(policy_fn: Callable, cfg: EnvConfig, num_cases: int = 500,
             prev = completed[start]
             if len(np.atleast_1d(prev.success)) == n_valid:
                 running = prev if running is None else _concat(running, prev)
-                print(f"[harness] cases {start}-{start + n_valid - 1}: "
-                      f"resumed from {progress_file}",
-                      file=sys.stderr, flush=True)
+                if lead:
+                    print(f"[harness] cases {start}-{start + n_valid - 1}: "
+                          f"resumed from {progress_file}",
+                          file=sys.stderr, flush=True)
                 continue
+        if mesh is not None:
+            # pad episodes replay the last case and are sliced out below
+            cases = cases + [cases[-1]] * ((-n_valid) % mesh.size)
+            cases = cases[mesh.rows(len(cases))]
         states = crowd_sim.reset_batch(cfg, cases, phase, device)
         if stateful_policy is None:
             _, stats, _ = rollout.batch_rollout(states, policy_fn, cfg,
@@ -123,18 +133,20 @@ def evaluate_policy(policy_fn: Callable, cfg: EnvConfig, num_cases: int = 500,
             init_carry_fn, step_fn = stateful_policy
             _, stats = rollout.batch_rollout_stateful(
                 states, init_carry_fn(cases), step_fn, cfg, max_steps)
+        stats = gather_batch(stats, mesh)
         batch_stats = rollout.EpisodeStats(
             *[np.atleast_1d(x.cpu().numpy())[:n_valid] for x in stats])
-        if progress_file:
+        if progress_file and lead:
             _append_progress(progress_file, start, batch_stats)
         # a running summary per batch: a prefix of batches stays
         # reconstructable from the log even without a progress_file
         running = (batch_stats if running is None
                    else _concat(running, batch_stats))
-        print(f"[harness] cases {start}-{start + n_valid - 1}: "
-              f"success {float(np.mean(batch_stats.success)):.2f} "
-              f"running {summarize(running, cfg)}",
-              file=sys.stderr, flush=True)
+        if lead:
+            print(f"[harness] cases {start}-{start + n_valid - 1}: "
+                  f"success {float(np.mean(batch_stats.success)):.2f} "
+                  f"running {summarize(running, cfg)}",
+                  file=sys.stderr, flush=True)
 
     return summarize(running, cfg)
 

@@ -39,6 +39,9 @@ from sicnav_tpu_torch.env.crowd_sim import (
 )
 from sicnav_tpu_torch.env.human_policies import human_actions
 from sicnav_tpu_torch.env.types import EnvConfig, SimState
+from sicnav_tpu_torch.parallel.mesh import (
+    all_mean, all_mean_grads, gather_batch, replicate, shard_batch,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,11 +243,15 @@ def epsilon(step: int, dqn: DQNConfig) -> float:
 
 
 def train_step(net, target, optimizer, batch: Transition,
-               gamma: float) -> torch.Tensor:
+               gamma: float, mesh=None) -> torch.Tensor:
     """Fitted value iteration: V(s) <- r + (1 - done) * gamma * V_target(s'),
     the mean squared error and one step of ``optimizer`` (Adam in
     ``train``). Returns the loss, a 0-d tensor on the device (not
-    synchronized)."""
+    synchronized).
+
+    With ``mesh`` each rank holds its equal share of the batch and the same
+    parameters: the gradients and the loss are averaged over the ranks
+    before Adam, which gives every rank the whole batch's step."""
     with torch.no_grad():
         v_next = target(batch.next_robot, batch.next_humans, batch.hmask)
         tgt = batch.reward + (1.0 - batch.done.to(v_next.dtype)) * gamma * \
@@ -253,6 +260,9 @@ def train_step(net, target, optimizer, batch: Transition,
     v = net(batch.robot, batch.humans, batch.hmask)
     loss = torch.mean((v - tgt) ** 2)
     loss.backward()
+    if mesh is not None:
+        all_mean_grads(net.parameters(), mesh)
+        loss = all_mean(loss, mesh)
     optimizer.step()
     return loss.detach()
 
@@ -407,27 +417,45 @@ def train(net, env_cfg: EnvConfig, dqn: DQNConfig = DQNConfig(),
     (``utils/metrics.MetricsLogger``), with tensorboard files when
     ``tensorboard``. ``save_freq`` > 0 with ``checkpoint_dir`` saves the
     parameters, the target, Adam's state and the full replay buffer every
-    save_freq env steps (``save_train_checkpoint``). ``mesh`` (data-parallel
-    training over several cards) is not ported."""
+    save_freq env steps (``save_train_checkpoint``).
+
+    ``mesh`` (``parallel.mesh.Mesh``, called in every rank of a
+    ``parallel.mesh.launch``): data-parallel training on the mesh's
+    devices. Each rank steps its rows of the ``n_envs`` environments
+    (``n_envs`` divides over the ranks) and every rank draws the same
+    global random numbers from the same seed and keeps its rows, so the
+    run is the unsharded one. The transitions are gathered after each
+    collect, so every rank holds the whole replay buffer and samples the
+    same indices; where ``batch_size`` divides over the ranks each rank
+    trains on its rows and the gradients are averaged
+    (``train_step(mesh=)``), else every rank computes the whole batch.
+    The parameters start from rank 0's; the target copies rank 0's; the
+    log and the checkpoints are rank 0's. Every rank returns the same."""
     if mesh is not None:
-        raise NotImplementedError(
-            "dqn.train: data-parallel training over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 14)")
+        device = mesh.device
+        if n_envs % mesh.size:
+            raise ValueError(f"dqn.train: {n_envs} environments do not "
+                             f"divide over {mesh.size} ranks")
     device = resolve_device(device)
+    lead = mesh is None or mesh.rank == 0
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     logger = None
-    if log_dir is not None:
+    if log_dir is not None and lead:
         from sicnav_tpu_torch.utils.metrics import MetricsLogger
         logger = MetricsLogger(log_dir, "dqn", tensorboard=tensorboard)
     net.to(device)
     if init_params is not None:
         net.load_state_dict(init_params)
+    if mesh is not None:
+        replicate(net.state_dict(), mesh)
+    shard_train = mesh is not None and dqn.batch_size % mesh.size == 0
     target = copy.deepcopy(net).requires_grad_(False)
     optimizer = make_optimizer(net, dqn)
     actions = build_action_space(env_cfg, dqn, device)
 
-    states = crowd_sim.reset_device(env_cfg, n_envs, generator, device)
+    states = shard_batch(crowd_sim.reset_device(env_cfg, n_envs, generator,
+                                                device), mesh)
     buf = ReplayBuffer.create(dqn.buffer_capacity, env_cfg.max_humans,
                               device)
     collect = make_collect_step(net, env_cfg, dqn, actions, base=states)
@@ -437,16 +465,25 @@ def train(net, env_cfg: EnvConfig, dqn: DQNConfig = DQNConfig(),
     step_count = 0
     ep_rates = init_episode_rates(n_envs, device)
     while step_count < total:
-        states, trans, info = collect(states, step_count, generator)
+        draws = shard_batch(collect_draws(env_cfg, n_envs, actions.shape[0],
+                                          generator, device), mesh)
+        states, trans, info = collect(states, step_count, draws=draws)
+        trans, info = gather_batch((trans, info), mesh)
         buf = buffer_add(buf, trans, n_envs)
         ep_rates = update_episode_rates(ep_rates, info)
         step_count += n_envs
 
         if step_count > dqn.learning_starts:
             batch = buffer_sample(buf, dqn.batch_size, generator)
-            loss = train_step(net, target, optimizer, batch, dqn.gamma)
+            if shard_train:
+                loss = train_step(net, target, optimizer,
+                                  shard_batch(batch, mesh), dqn.gamma, mesh)
+            else:
+                loss = train_step(net, target, optimizer, batch, dqn.gamma)
             if (step_count // n_envs) % dqn.target_update_interval == 0:
-                target.load_state_dict(net.state_dict())
+                target.load_state_dict(
+                    net.state_dict() if mesh is None else
+                    replicate(copy.deepcopy(net.state_dict()), mesh))
             if (step_count // n_envs) % log_every == 0:
                 loss_v, reward_mean, done_rate = torch.stack([
                     loss, trans.reward.mean(),
@@ -463,12 +500,12 @@ def train(net, env_cfg: EnvConfig, dqn: DQNConfig = DQNConfig(),
                 history.append(rec)
                 if logger is not None:
                     logger.log(**rec)
-        if (save_freq and checkpoint_dir and
+        if (save_freq and checkpoint_dir and lead and
                 step_count % max(save_freq - save_freq % n_envs, n_envs) == 0):
             save_train_checkpoint(checkpoint_dir, step_count, net.state_dict(),
                                   target.state_dict(), optimizer.state_dict(),
                                   buf)
-    if save_freq and checkpoint_dir:
+    if save_freq and checkpoint_dir and lead:
         save_train_checkpoint(checkpoint_dir, step_count, net.state_dict(),
                               target.state_dict(), optimizer.state_dict(), buf)
     if logger is not None:
@@ -513,3 +550,17 @@ def load_train_checkpoint(path, device=None):
                        b["idx"], b["size"])
     return (st["step"], to_dev(st["params"]), to_dev(st["target_params"]),
             st["opt_state"], buf)
+
+
+def train_on_mesh(mesh, model: str, env_cfg: EnvConfig, dqn: DQNConfig,
+                  n_envs: int, seed: int = 0, total_steps: int = None,
+                  log_every: int = 200, init_params=None):
+    """A rank body for ``parallel.mesh.launch``: ``train`` of a fresh
+    ``model`` network ("sarl" or "rgl", drawn from ``seed``, then
+    ``init_params`` if given) on ``mesh``. Returns (state_dict, history),
+    the same on every rank."""
+    from sicnav_tpu_torch.rl.networks import make_network
+    net = make_network(model, device=mesh.device, seed=seed)
+    return train(net, env_cfg, dqn, n_envs=n_envs, seed=seed,
+                 total_steps=total_steps, init_params=init_params,
+                 log_every=log_every, mesh=mesh)

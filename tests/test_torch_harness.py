@@ -141,12 +141,6 @@ def test_evaluate_policy_resumes_without_stepping(tmp_path, monkeypatch):
                           progress_file=path, device="cpu")
 
 
-def test_evaluate_policy_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        H.evaluate_policy(None, port_cfg(SHORT), num_cases=1, batch=1,
-                          mesh=object(), device="cpu")
-
-
 def test_chip_smoke_harness_rehearsal(tmp_path):
     """chip_smoke.py's harness phase, run for two cases on the CPU."""
     sys.path.insert(0, str(ROOT))

@@ -40,7 +40,8 @@ SCRIPTS = [ROOT / "scripts" / name for name in (
     "bench_control_step_torch.py", "audit_common_torch.py",
     "collision_taxonomy_torch.py", "timeout_taxonomy_torch.py",
     "suite_audit_torch.py", "sweep_ipm_iters_torch.py",
-    "summarize_progress_torch.py", "eval_dispatch_paired_torch.py")]
+    "summarize_progress_torch.py", "eval_dispatch_paired_torch.py",
+    "bench_fleet_scaling_torch.py")]
 # the reference's script modules, which the port's scripts keep twins of
 REFERENCE_SCRIPTS = {"audit_common", "collision_taxonomy",
                      "timeout_taxonomy", "eval_suite", "train_jmid",
@@ -154,6 +155,16 @@ def test_scan_covers_the_tools_slice():
     assert "matplotlib" not in _imported_roots(render, module_level=True)
 
 
+def test_scan_covers_the_mesh_slice():
+    """The mesh, its users, the native oracle, the entry analog and the
+    fleet bench are among the files scanned."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PY_FILES}
+    for name in ("parallel/mesh", "parallel/fleet", "parallel/dryrun",
+                 "native/orca_cpp", "entry"):
+        assert f"sicnav_tpu_torch/{name}.py" in scanned, name
+    assert "scripts/bench_fleet_scaling_torch.py" in scanned
+
+
 def test_scan_sees_a_forbidden_import(tmp_path):
     bad = tmp_path / "bad.py"
     bad.write_text("import os\nfrom sicnav_tpu.ops import orca\n")
@@ -173,7 +184,7 @@ def test_kernels_build_without_torch_headers():
 def test_package_holds_source_only():
     for p in PKG.rglob("*"):
         if p.is_file() and "__pycache__" not in p.parts:
-            assert p.suffix in {".py", ".cu", ".cuh"}, p
+            assert p.suffix in {".py", ".cu", ".cuh", ".cpp"}, p
             assert p.stat().st_size < 200 * 1024, p
 
 
@@ -181,6 +192,7 @@ def test_entry_points_default_to_cuda():
     from types import SimpleNamespace
 
     import bench_control_step_torch
+    import bench_fleet_scaling_torch
     import collision_taxonomy_torch
     import eval_dispatch_paired_torch
     import eval_prediction_torch
@@ -197,6 +209,10 @@ def test_entry_points_default_to_cuda():
     from sicnav_tpu_torch.rl import dqn as D
     from sicnav_tpu_torch.rl import imitation as IL
     from sicnav_tpu_torch.rl import networks as N
+    from sicnav_tpu_torch import entry
+    from sicnav_tpu_torch.native import orca_cpp
+    from sicnav_tpu_torch.parallel import dryrun, fleet
+    from sicnav_tpu_torch.parallel import mesh as PM
     from sicnav_tpu_torch.realtime import StreamingController
     from sicnav_tpu_torch.utils.state_filter import init_filter
     cfg = T.EnvConfig()
@@ -240,6 +256,15 @@ def test_entry_points_default_to_cuda():
         lambda: eval_dispatch_paired_torch.main([]),
         lambda: sweep_ipm_iters_torch.measure_latency(
             2, SimpleNamespace(device=None)),
+        lambda: PM.make_mesh(),
+        lambda: PM.plan(2),
+        lambda: PM.launch(dryrun.main, 2),
+        lambda: fleet.make_fleet_policy(cfg),
+        lambda: entry.entry(),
+        lambda: entry.dryrun_multichip(2),
+        lambda: bench_fleet_scaling_torch.main([]),
+        lambda: orca_cpp.orca_step_torch([[0.0, 0.0]], [[0.0, 0.0]], [0.3],
+                                         [[1.0, 0.0]], [1.0]),
     ]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"

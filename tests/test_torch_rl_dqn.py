@@ -385,9 +385,3 @@ def test_short_train_run(tmp_path):
             assert 0.0 <= h[k] <= 1.0, (k, h)
     assert all(torch.isfinite(v).all() for v in params.values())
     assert (tmp_path / "dqn.jsonl").read_text().count("\n") == len(hist)
-
-
-def test_train_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        D.train(N.SARLNetwork(device="cpu"), port_cfg(ENV), mesh=object(),
-                device="cpu")
