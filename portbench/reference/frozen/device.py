@@ -1,0 +1,19 @@
+"""Device selection shared by the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names one.
+
+    Raises when CUDA is asked for (explicitly or by default) and no card is
+    present, so a run never continues quietly on the CPU.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sicnav_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return dev
