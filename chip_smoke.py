@@ -878,23 +878,22 @@ def phase_profile(model, steps=3):
             state, fstate = control_step(state, fstate)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    n_launch = sum(e.count for e in kernels)
+    events = device_events(prof)
+    busy_us = union_us(events)
+    n_launch = len(events)
     if busy_us <= 0:
         log("  profiler saw no device time: busy share not measured")
         return
     log(f"  {steps} control steps: wall {wall_us / 1e3:.2f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
         f"{n_launch} kernel launches ({n_launch / steps:.0f} per step)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f} ms {e.count:6d} x "
-            f"{e.key[:90]}")
-    kde = [e for e in kernels if "kde_loglik_kernel" in e.key]
-    for e in kde:
-        log(f"  kde_loglik_kernel: {e.count} launches, "
-            f"{e.self_device_time_total / e.count:.2f} us each on the device")
+    by_name = by_kernel(events)
+    for name, (n, t) in sorted(by_name.items(), key=lambda x: -x[1][1])[:8]:
+        log(f"  {t / 1e3:8.2f} ms {n:6d} x {name[:90]}")
+    for name, (n, t) in by_name.items():
+        if "kde_loglik_kernel" in name:
+            log(f"  kde_loglik_kernel: {n} launches, {t / n:.2f} us each on "
+                "the device")
 
 
 def protocol_env():
@@ -1123,13 +1122,41 @@ def phase_cross_mpc(ocp, record, settings, device="cuda"):
 
 
 def device_events(prof):
-    """(name, duration in us) of every device activity a profile recorded,
-    read from the raw trace: parsing ~10^6 events into torch.profiler's
-    Python tree (key_averages) took minutes on the card's host."""
+    """(name, start in us, duration in us) of every device activity a
+    profile recorded, read from the raw trace: parsing ~10^6 events into
+    torch.profiler's Python tree (key_averages) took minutes on the card's
+    host. The device-side mirrors of ``record_function`` ranges are no
+    device work and are left out (the benchmark's own rule,
+    ``portbench.lib.trace``)."""
+    from portbench.lib import trace
     cuda = torch.autograd.DeviceType.CUDA
-    return [(e.name(), e.duration_ns() / 1e3)
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == cuda]
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda and not trace._annotation(e, name):
+            out.append((name, e.start_ns() / 1e3, e.duration_ns() / 1e3))
+    return out
+
+
+def union_us(events):
+    """The device's busy time: the union of the events' intervals, in us
+    (a sum of durations counts overlapping activities twice)."""
+    if not events:
+        return 0.0
+    import numpy as np
+    from portbench.lib import trace
+    starts = np.asarray([s for _, s, _ in events])
+    m_s, m_e = trace._union(starts, starts + [d for _, _, d in events])
+    return float((m_e - m_s).sum())
+
+
+def by_kernel(events):
+    """{name: (launches, summed device us)} of the events."""
+    by_name = {}
+    for name, _, d in events:
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + d)
+    return by_name
 
 
 def phase_profile_mpc(ocp, model, settings, steps=1):
@@ -1163,14 +1190,11 @@ def phase_profile_mpc(ocp, model, settings, steps=1):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = device_events(prof)
-    busy_us = sum(d for _, d in events)
+    busy_us = union_us(events)
     if busy_us <= 0:
         log("  profiler saw no device time: busy share not measured")
         return None
-    by_name = {}
-    for name, d in events:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + d)
+    by_name = by_kernel(events)
     log(f"  {steps} MPC control step(s): wall {wall_us / 1e3:.2f} ms "
         f"(profiled), device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / wall_us:.1f} %), {len(events)} device launches "
@@ -1440,12 +1464,9 @@ def phase_profile_batch(ocp, model, settings, final):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = device_events(prof)
-    busy_us = sum(d for _, d in events)
+    busy_us = union_us(events)
     assert busy_us > 0, "the profiler saw no device time"
-    by_name = {}
-    for name, d in events:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + d)
+    by_name = by_kernel(events)
     B = action.shape[0]
     log(f"  1 batched control step (B = {B}): wall {wall_us / 1e3:.2f} ms "
         f"(profiled), device busy {busy_us / 1e3:.2f} ms "
@@ -1636,12 +1657,9 @@ def profile_train_step(model, batch, tc):
         wall_us = (time.perf_counter() - t0) * 1e6
     peak = torch.cuda.max_memory_allocated()
     events = device_events(prof)
-    busy_us = sum(d for _, d in events)
+    busy_us = union_us(events)
     assert busy_us > 0, "the profiler saw no device time"
-    by_name = {}
-    for name, d in events:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + d)
+    by_name = by_kernel(events)
     log(f"  1 train step (profiled): wall {wall_us / 1e3:.2f} ms, device "
         f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
         f"{len(events)} device launches; peak device memory "
@@ -1863,7 +1881,7 @@ def _profiled(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
-    busy_ms = sum(d for _, d in events) / 1e3
+    busy_ms = union_us(events) / 1e3
     assert busy_ms > 0, "the profiler saw no device time"
     return wall_ms, busy_ms, len(events), out
 

@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from sicnav_tpu_torch.utils import tracing
+
 
 class VarianceSchedule(NamedTuple):
     betas: torch.Tensor        # (T+1,) padded with beta_0 = 0
@@ -146,20 +148,21 @@ def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
     sqrt_1mab = torch.sqrt(1 - sched.alpha_bars)
     sigmas = (sched.sigmas_flex * flexibility +
               sched.sigmas_inflex * (1 - flexibility))
-    for i, t in enumerate(range(sched.num_steps, 0, -stride)):
-        t_next = max(t - stride, 0)
-        beta = sched.betas[t].expand(*lead, bs)
-        e_theta = net_apply(x_t, beta, ctx)
-        if sampling == "ddim":
-            x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
-            x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
-            continue
-        alpha = sched.alphas[t]
-        c0 = 1.0 / torch.sqrt(alpha)
-        c1 = (1 - alpha) / sqrt_1mab[t]
-        x_t = c0 * (x_t - c1 * e_theta)
-        if t > 1:
-            z = (noise[i] if noise is not None else
-                 _draw(shape, lead, generator, context.device))
-            x_t = x_t + sigmas[t] * z.to(x_t.dtype)
+    with tracing.span("forecast.denoise"):
+        for i, t in enumerate(range(sched.num_steps, 0, -stride)):
+            t_next = max(t - stride, 0)
+            beta = sched.betas[t].expand(*lead, bs)
+            e_theta = net_apply(x_t, beta, ctx)
+            if sampling == "ddim":
+                x0_t = (x_t - e_theta * sqrt_1mab[t]) / sqrt_ab[t]
+                x_t = sqrt_ab[t_next] * x0_t + sqrt_1mab[t_next] * e_theta
+                continue
+            alpha = sched.alphas[t]
+            c0 = 1.0 / torch.sqrt(alpha)
+            c1 = (1 - alpha) / sqrt_1mab[t]
+            x_t = c0 * (x_t - c1 * e_theta)
+            if t > 1:
+                z = (noise[i] if noise is not None else
+                     _draw(shape, lead, generator, context.device))
+                x_t = x_t + sigmas[t] * z.to(x_t.dtype)
     return x_t.reshape(*lead, n_samples, B, horizon, point_dim)

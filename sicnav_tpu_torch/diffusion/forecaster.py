@@ -24,6 +24,7 @@ from sicnav_tpu_torch.diffusion import kde
 from sicnav_tpu_torch.diffusion.data import ATTENTION_RADIUS, SceneBatch
 from sicnav_tpu_torch.diffusion.mid import JMIDModel
 from sicnav_tpu_torch.env.types import SimState
+from sicnav_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +106,7 @@ def cvmm_forecast(sim: SimState, cfg: ForecasterConfig):
     return sim.h_pos[..., None, :] + sim.h_vel[..., None, :] * steps
 
 
+@tracing.spanned("forecast")
 def predict_ret_best(model: JMIDModel, fstate: ForecasterState, sim: SimState,
                      cfg: ForecasterConfig, generator=None, x_T=None):
     """Forecast + rank. Returns (forecasts (..., H, k, horizon+1, 2) with
@@ -133,8 +135,9 @@ def predict_ret_best(model: JMIDModel, fstate: ForecasterState, sim: SimState,
     samples = torch.where(in_cluster[..., None, :, None, None], samples,
                           cv[..., None, :, :, :])
 
-    top, log_w = kde.most_likely_samples(samples, cfg.num_ret_samples,
-                                         joint=cfg.joint)
+    with tracing.span("forecast.kde"):
+        top, log_w = kde.most_likely_samples(samples, cfg.num_ret_samples,
+                                             joint=cfg.joint)
     # prepend the current pose
     k = cfg.num_ret_samples
     cur = sim.h_pos[..., :, None, None, :].expand(*top.shape[:-3], k, 1, 2)

@@ -30,6 +30,7 @@ from sicnav_tpu_torch.env.wall_clamp import (
     clamp_holonomic_action, clamp_unicycle_action,
 )
 from sicnav_tpu_torch.ops.geometry import norm2, wrap_angle
+from sicnav_tpu_torch.utils import tracing
 
 
 # A tree is nested tuples and NamedTuples of tensors: DoorParams nests in
@@ -286,6 +287,7 @@ def _lead_where(cond, a, b):
                        a, b)
 
 
+@tracing.spanned("env.step")
 def step_masked(state: SimState, action, cfg: EnvConfig):
     """Step that freezes terminated environments."""
     new_state, reward, info = step(state, action, cfg)

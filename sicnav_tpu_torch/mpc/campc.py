@@ -19,6 +19,9 @@ run one after another where the reference ``vmap``s them. The
 adaptive-effort budget is read on the host once per step; on a ``vmapped``
 OCP it stays a tensor per episode, and the solver freezes an episode's
 iterate once its budget is spent.
+
+With ``utils.tracing`` on, a step records an ``mpc`` span holding
+``mpc.problem``, ``mpc.guess``, ``mpc.solve`` and ``mpc.cascade``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from sicnav_tpu_torch.mpc.ref_traj import point_stab_reference
 from sicnav_tpu_torch.ops.geometry import (linspace, norm2,
                                            point_to_segment_dist,
                                            seg_seg_dist, wrap_angle)
+from sicnav_tpu_torch.utils import tracing
 
 
 class CAMPCCarry(NamedTuple):
@@ -453,6 +457,7 @@ def step_problem(ocp: OCP, state: SimState, carry: CAMPCCarry,
     return params, (door_stall, door_latch), (f_fn, c_fn)
 
 
+@tracing.spanned("mpc")
 def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
                  env_cfg: EnvConfig,
                  settings: ipm.IPMSettings = ipm.IPMSettings(),
@@ -467,9 +472,10 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
     alone and never escalates (``adaptive_effort`` is ignored): to trace
     an escalated step, pass settings with the escalated ``n_iter``."""
     cfg = ocp.cfg
-    params, (door_stall, door_latch), (f_fn, c_fn) = \
-        step_problem(ocp, state, carry, env_cfg, mid_samples, mid_logw0,
-                     h_intent, cost_weights)
+    with tracing.span("mpc.problem"):
+        params, (door_stall, door_latch), (f_fn, c_fn) = \
+            step_problem(ocp, state, carry, env_cfg, mid_samples, mid_logw0,
+                         h_intent, cost_weights)
     comb = params.hum_coll_radii + params.rob_radius + cfg.rob_rad_buffer
 
     def plan_margin(u_rob_plan):
@@ -484,109 +490,122 @@ def campc_action(ocp: OCP, state: SimState, carry: CAMPCCarry,
     # failure-triggered effort escalation: a step whose previous solve the
     # cascade rejected gets cfg.adaptive_effort more IPM iterations; read
     # once per step on the host, or a tensor per episode when vmapped
-    n_dyn, bound = None, None
-    if cfg.adaptive_effort > 0 and not debug:
-        escalate = carry.has_prev & ~carry.prev_ok
-        bound = settings.n_iter + cfg.adaptive_effort
-        if ocp.vmapped:
-            n_dyn = settings.n_iter + \
-                cfg.adaptive_effort * escalate.to(torch.int32)
+    single = debug or cfg.multi_start <= 1
+    with tracing.span("mpc.guess"):
+        n_dyn, bound = None, None
+        if cfg.adaptive_effort > 0 and not debug:
+            escalate = carry.has_prev & ~carry.prev_ok
+            bound = settings.n_iter + cfg.adaptive_effort
+            if ocp.vmapped:
+                n_dyn = settings.n_iter + \
+                    cfg.adaptive_effort * escalate.to(torch.int32)
+            else:
+                n_dyn = bound if bool(escalate) else settings.n_iter
+        if single:
+            z_guess = _select_guess(ocp, carry, params)
         else:
-            n_dyn = bound if bool(escalate) else settings.n_iter
+            z_guess, starts = _build_starts(ocp, carry, params)
 
     def run(z0):
         return ipm.solve(f_fn, c_fn, z0, settings, n_iter_dyn=n_dyn,
                          n_iter_bound=bound)
 
-    if debug or cfg.multi_start <= 1:
-        z_guess = _select_guess(ocp, carry, params)
+    with tracing.span("mpc.solve"):
         if debug:
             z_sol, info, raw_trace = ipm.solve(f_fn, c_fn, z_guess, settings,
                                                return_trace=True)
-        else:
+        elif single:
             z_sol, info = run(z_guess)
-        sol_margin = plan_margin(ocp.unpack(z_sol)[0])
-    else:
-        # every start solved, then the best exact-rollout-feasible solution
-        # by cost, the goal-directed starts [selected, fresh] first
-        z_guess, starts = _build_starts(ocp, carry, params)
-        sols = [run(z0) for z0 in starts]
-        z_sols = torch.stack([s[0] for s in sols])
-        infos = ipm.IPMInfo(*[torch.stack(x) for x in
-                              zip(*[s[1] for s in sols])])
-        costs = torch.stack([f_fn(z) for z in z_sols])
-        finite = torch.isfinite(z_sols).all(dim=-1)
-        feas = finite & (infos.ineq_viol < 1e-2) & (infos.eq_viol < 1e-1)
-        margins = torch.stack([plan_margin(ocp.unpack(z)[0]) for z in z_sols])
-        ok = feas & (margins > cfg.accept_margin)
-        n_primary = min(2, cfg.multi_start)
-        primary = torch.arange(cfg.multi_start, device=ok.device) < n_primary
-        ok_primary = (ok & primary).any()
-        eligible = ok & torch.where(ok_primary, primary, True)
-        score = torch.where(eligible & torch.isfinite(costs), costs,
-                            torch.inf)
-        idx = torch.where(eligible.any(), torch.argmin(score),
-                          torch.argmin(costs))
-        z_sol = z_sols[idx]
-        info = ipm.IPMInfo(*[x[idx] for x in infos])
-        sol_margin = margins[idx]
-        m_idx = torch.argmax(torch.where(finite, margins, -torch.inf))
-        z_mbest = z_sols[m_idx]
-        m_best = torch.where(finite.any(), margins[m_idx],
-                             torch.full_like(margins[0], -torch.inf))
+        else:
+            sols = [run(z0) for z0 in starts]
 
-    # --- failure cascade --------------------------------------------------
-    sol_cost = ocp.cost(z_sol, params)
-    guess_cost = ocp.cost(z_guess, params)
-    sol_finite = torch.isfinite(z_sol).all()
-    sol_feasible = sol_finite & (info.ineq_viol < 1e-2) & \
-        (info.eq_viol < 1e-1)
-    sol_realistic = sol_margin > cfg.accept_margin
-    # keep the guess when the "optimized" value is worse; with multi-start
-    # only when the guess is itself exact-rollout-realistic
-    cost_worse = sol_cost > guess_cost
-    if cfg.multi_start > 1 and not debug:
-        cost_worse = cost_worse & (plan_margin(ocp.unpack(z_guess)[0]) >
-                                   cfg.accept_margin)
-    use_guess = (~sol_feasible) | (~sol_realistic) | cost_worse
-    z_used = torch.where(use_guess, z_guess, z_sol)
+    with tracing.span("mpc.cascade"):
+        if single:
+            sol_margin = plan_margin(ocp.unpack(z_sol)[0])
+        else:
+            # the best exact-rollout-feasible solution by cost, the
+            # goal-directed starts [selected, fresh] first
+            z_sols = torch.stack([s[0] for s in sols])
+            infos = ipm.IPMInfo(*[torch.stack(x) for x in
+                                  zip(*[s[1] for s in sols])])
+            costs = torch.stack([f_fn(z) for z in z_sols])
+            finite = torch.isfinite(z_sols).all(dim=-1)
+            feas = finite & (infos.ineq_viol < 1e-2) & \
+                (infos.eq_viol < 1e-1)
+            margins = torch.stack([plan_margin(ocp.unpack(z)[0])
+                                   for z in z_sols])
+            ok = feas & (margins > cfg.accept_margin)
+            n_primary = min(2, cfg.multi_start)
+            primary = torch.arange(cfg.multi_start,
+                                   device=ok.device) < n_primary
+            ok_primary = (ok & primary).any()
+            eligible = ok & torch.where(ok_primary, primary, True)
+            score = torch.where(eligible & torch.isfinite(costs), costs,
+                                torch.inf)
+            idx = torch.where(eligible.any(), torch.argmin(score),
+                              torch.argmin(costs))
+            z_sol = z_sols[idx]
+            info = ipm.IPMInfo(*[x[idx] for x in infos])
+            sol_margin = margins[idx]
+            m_idx = torch.argmax(torch.where(finite, margins, -torch.inf))
+            z_mbest = z_sols[m_idx]
+            m_best = torch.where(finite.any(), margins[m_idx],
+                                 torch.full_like(margins[0], -torch.inf))
 
-    # emergency brake if even the guess is broken; with
-    # cfg.brake_on_unreal_guess also when the adopted guess's own exact
-    # rollout predicts a collision (its margin is needed only then)
-    guess_ok = torch.isfinite(z_guess).all()
-    if cfg.brake_on_unreal_guess and (ocp.vmapped or bool(use_guess)):
-        margin_g = exact_plan_margin(ocp, params, ocp.unpack(z_guess)[0],
-                                     cfg.brake_horizon)
-        guess_ok = guess_ok & (~use_guess | (margin_g > cfg.brake_margin))
-    use_rescue = torch.zeros_like(guess_ok)
-    if cfg.rescue_best_margin and cfg.multi_start > 1 and not debug:
-        use_rescue = (use_guess & ~guess_ok & torch.isfinite(z_mbest).all()
-                      & (m_best > cfg.brake_margin))
-        z_used = torch.where(use_rescue, z_mbest, z_used)
-    u_rob = ocp.unpack(z_used)[0]
-    exec_plan = guess_ok | ~use_guess | use_rescue
-    if cfg.evasive_brake and ocp.vmapped:
-        action_u = torch.where(exec_plan, u_rob[0],
-                               _evasive_brake_action(ocp, params))
-    elif cfg.evasive_brake and not bool(exec_plan):
-        action_u = _evasive_brake_action(ocp, params)
-    else:
-        v_brake = torch.clamp(ocp.rob_v_prev(params.x0_rob) +
-                              cfg.max_l_dcc * cfg.dt, min=0.0)
-        action_u = torch.where(exec_plan, u_rob[0],
-                               torch.stack([v_brake, torch.zeros_like(v_brake)]))
+        # --- failure cascade ----------------------------------------------
+        sol_cost = ocp.cost(z_sol, params)
+        guess_cost = ocp.cost(z_guess, params)
+        sol_finite = torch.isfinite(z_sol).all()
+        sol_feasible = sol_finite & (info.ineq_viol < 1e-2) & \
+            (info.eq_viol < 1e-1)
+        sol_realistic = sol_margin > cfg.accept_margin
+        # keep the guess when the "optimized" value is worse; with multi-start
+        # only when the guess is itself exact-rollout-realistic
+        cost_worse = sol_cost > guess_cost
+        if cfg.multi_start > 1 and not debug:
+            cost_worse = cost_worse & (plan_margin(ocp.unpack(z_guess)[0]) >
+                                       cfg.accept_margin)
+        use_guess = (~sol_feasible) | (~sol_realistic) | cost_worse
+        z_used = torch.where(use_guess, z_guess, z_sol)
 
-    action = torch.stack([action_u[0], action_u[1] * cfg.dt])
-    u_rob_used, u_hums_used, _, slacks_used = ocp.unpack(z_used)
-    Xr_used, Xh_used = ocp.rollout(params, u_rob_used, u_hums_used)
-    carry_new = CAMPCCarry(
-        z_prev=z_used, has_prev=torch.ones_like(carry.has_prev),
-        prev_ok=~use_guess,
-        num_prev_used=torch.where(use_guess, carry.num_prev_used + 1,
-                                  torch.zeros_like(carry.num_prev_used)),
-        pred_rob=_rob_pose(ocp, Xr_used[1]), pred_hums=Xh_used[1][:, :2],
-        door_stall=door_stall, door_latch=door_latch)
+        # emergency brake if even the guess is broken; with
+        # cfg.brake_on_unreal_guess also when the adopted guess's own exact
+        # rollout predicts a collision (its margin is needed only then)
+        guess_ok = torch.isfinite(z_guess).all()
+        if cfg.brake_on_unreal_guess and (ocp.vmapped or bool(use_guess)):
+            margin_g = exact_plan_margin(ocp, params, ocp.unpack(z_guess)[0],
+                                         cfg.brake_horizon)
+            guess_ok = guess_ok & (~use_guess | (margin_g > cfg.brake_margin))
+        use_rescue = torch.zeros_like(guess_ok)
+        if cfg.rescue_best_margin and cfg.multi_start > 1 and not debug:
+            use_rescue = (use_guess & ~guess_ok & torch.isfinite(z_mbest).all()
+                          & (m_best > cfg.brake_margin))
+            z_used = torch.where(use_rescue, z_mbest, z_used)
+        u_rob = ocp.unpack(z_used)[0]
+        exec_plan = guess_ok | ~use_guess | use_rescue
+        if cfg.evasive_brake and ocp.vmapped:
+            action_u = torch.where(exec_plan, u_rob[0],
+                                   _evasive_brake_action(ocp, params))
+        elif cfg.evasive_brake and not bool(exec_plan):
+            action_u = _evasive_brake_action(ocp, params)
+        else:
+            v_brake = torch.clamp(ocp.rob_v_prev(params.x0_rob) +
+                                  cfg.max_l_dcc * cfg.dt, min=0.0)
+            action_u = torch.where(
+                exec_plan, u_rob[0],
+                torch.stack([v_brake, torch.zeros_like(v_brake)]))
+
+        action = torch.stack([action_u[0], action_u[1] * cfg.dt])
+        u_rob_used, u_hums_used, _, slacks_used = ocp.unpack(z_used)
+        Xr_used, Xh_used = ocp.rollout(params, u_rob_used, u_hums_used)
+        carry_new = CAMPCCarry(
+            z_prev=z_used, has_prev=torch.ones_like(carry.has_prev),
+            prev_ok=~use_guess,
+            num_prev_used=torch.where(use_guess, carry.num_prev_used + 1,
+                                      torch.zeros_like(carry.num_prev_used)),
+            pred_rob=_rob_pose(ocp, Xr_used[1]), pred_hums=Xh_used[1][:, :2],
+            door_stall=door_stall, door_latch=door_latch)
+
     if debug and not aux:
         u_rob_g, u_hums_g, _, _ = ocp.unpack(z_guess)
         Xr_g, _ = ocp.rollout(params, u_rob_g, u_hums_g)

@@ -27,6 +27,11 @@ the same way: the loop runs the static bound the caller names and an
 episode's iterate is frozen once its budget is spent, as the reference's
 while loop under ``jax.vmap`` runs until the last episode's budget is spent
 with the others frozen.
+
+With ``utils.tracing`` on, a solve records an ``ipm.precond`` span and, per
+iteration, ``ipm.grad``, ``ipm.jac``, ``ipm.hess``, ``ipm.kkt`` (from the
+barrier parameter through the LU to the step limits) and ``ipm.search``
+(the merits, the trial steps, the second-order correction and the update).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch.func import grad_and_value, jacrev, vmap
+
+from sicnav_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +189,8 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
     if st.precondition:
         # diagonal scaling so every variable sees O(1) curvature; solve in
         # y = z / D, return D * y
-        h_diag = torch.diagonal(jacrev(jacrev(f_fn))(z0))
+        with tracing.span("ipm.precond"):
+            h_diag = torch.diagonal(jacrev(jacrev(f_fn))(z0))
         D_pre = 1.0 / torch.sqrt(torch.clamp(torch.abs(h_diag), 1.0, 1e10))
         f_raw, c_raw = f_fn, c_fn
         f_fn = lambda y: f_raw(D_pre * y)         # noqa: E731
@@ -234,121 +242,129 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
 
     def step(state: IPMState, it: int):
         z, y, lam, s, delta, _ = state
-        g, f_val = grad_f(z)
-        J, c = jac_c(z)
-        c_e, c_i = c[:m_e], c[m_e:]
-        J_e, J_i = J[:m_e], J[m_e:]
+        with tracing.span("ipm.grad"):
+            g, f_val = grad_f(z)
+        with tracing.span("ipm.jac"):
+            J, c = jac_c(z)
+            c_e, c_i = c[:m_e], c[m_e:]
+            J_e, J_i = J[:m_e], J[m_e:]
 
-        if st.mu_schedule == "geometric":
-            mu = torch.clamp(st.mu_init * torch.tensor(
-                mu_decay, dtype=dtype, device=device) ** it, min=st.mu_min)
-        else:
-            mu = torch.clamp(st.sigma * torch.dot(s, lam) / m_i,
-                             min=st.mu_min)
+        with tracing.span("ipm.hess"):
+            W = hess_l(z, y, lam)
+            # symmetrize + damp
+            W = 0.5 * (W + W.T) + delta * eye_n
 
-        W = hess_l(z, y, lam)
-        # symmetrize + damp
-        W = 0.5 * (W + W.T) + delta * eye_n
+        with tracing.span("ipm.kkt"):
+            if st.mu_schedule == "geometric":
+                mu = torch.clamp(st.mu_init * torch.tensor(
+                    mu_decay, dtype=dtype, device=device) ** it,
+                    min=st.mu_min)
+            else:
+                mu = torch.clamp(st.sigma * torch.dot(s, lam) / m_i,
+                                 min=st.mu_min)
+            D = lam / torch.clamp(s, min=st.s_min)
+            r_d = g + J_e.T @ y + J_i.T @ lam
+            # scaled KKT error of the current iterate: the 1e6-range
+            # slack-penalty gradients force a relative measure in f32
+            kkt_scale = 1.0 + _amax0(torch.abs(g))
+            kkt_stat = _amax0(torch.abs(r_d)) / kkt_scale
+            kkt_comp = _amax0(s * lam) / kkt_scale
+            corr = (mu / torch.clamp(s, min=st.s_min) - lam) + D * (c_i + s)
 
-        D = lam / torch.clamp(s, min=st.s_min)
-        r_d = g + J_e.T @ y + J_i.T @ lam
-        # scaled KKT error of the current iterate: the 1e6-range
-        # slack-penalty gradients force a relative measure in f32
-        kkt_scale = 1.0 + _amax0(torch.abs(g))
-        kkt_stat = _amax0(torch.abs(r_d)) / kkt_scale
-        kkt_comp = _amax0(s * lam) / kkt_scale
-        corr = (mu / torch.clamp(s, min=st.s_min) - lam) + D * (c_i + s)
+            H_red = W + (J_i.T * D) @ J_i
+            rhs_z = -(r_d + J_i.T @ corr)
+            if m_e:
+                M = torch.cat([torch.cat([H_red, J_e.T], dim=1),
+                               torch.cat([J_e, reg_block], dim=1)], dim=0)
+                rhs = torch.cat([rhs_z, -c_e])
+                LU, piv, _ = torch.linalg.lu_factor_ex(M)
+                sol = torch.linalg.lu_solve(LU, piv, rhs[:, None])[:, 0]
+                dz, dy = sol[:n], sol[n:]
+            else:
+                dz = torch.linalg.solve_ex(H_red, rhs_z)[0]
+                dy = y
+            ds = -(c_i + s) - J_i @ dz
+            dlam = (mu / torch.clamp(s, min=st.s_min) - lam) - D * ds
 
-        H_red = W + (J_i.T * D) @ J_i
-        rhs_z = -(r_d + J_i.T @ corr)
-        if m_e:
-            M = torch.cat([torch.cat([H_red, J_e.T], dim=1),
-                           torch.cat([J_e, reg_block], dim=1)], dim=0)
-            rhs = torch.cat([rhs_z, -c_e])
-            LU, piv, _ = torch.linalg.lu_factor_ex(M)
-            sol = torch.linalg.lu_solve(LU, piv, rhs[:, None])[:, 0]
-            dz, dy = sol[:n], sol[n:]
-        else:
-            dz = torch.linalg.solve_ex(H_red, rhs_z)[0]
-            dy = y
-        ds = -(c_i + s) - J_i @ dz
-        dlam = (mu / torch.clamp(s, min=st.s_min) - lam) - D * ds
+            # NaN/Inf guard: a singular KKT system yields non-finite
+            # directions; zero the step so the iterate is kept
+            step_ok = _all_finite(dz, ds, dlam, dy)
+            dz = torch.where(step_ok, dz, 0.0)
+            ds = torch.where(step_ok, ds, 0.0)
+            dlam = torch.where(step_ok, dlam, 0.0)
+            if m_e:
+                dy = torch.where(step_ok, dy, 0.0)
 
-        # NaN/Inf guard: a singular KKT system yields non-finite directions;
-        # zero the step so the iterate is kept
-        step_ok = _all_finite(dz, ds, dlam, dy)
-        dz = torch.where(step_ok, dz, 0.0)
-        ds = torch.where(step_ok, ds, 0.0)
-        dlam = torch.where(step_ok, dlam, 0.0)
-        if m_e:
-            dy = torch.where(step_ok, dy, 0.0)
+            a_p = _step_limit(s, ds, st.tau)
+            a_d = _step_limit(lam, dlam, st.tau)
 
-        a_p = _step_limit(s, ds, st.tau)
-        a_d = _step_limit(lam, dlam, st.tau)
+        with tracing.span("ipm.search"):
+            nu = 10.0 * (_amax0(torch.abs(lam)) +
+                         _amax0(torch.abs(y))) + 10.0
+            merit_now = _merit(f_val, c_e, c_i, s, mu, nu)
 
-        nu = 10.0 * (_amax0(torch.abs(lam)) + _amax0(torch.abs(y))) + 10.0
-        merit_now = _merit(f_val, c_e, c_i, s, mu, nu)
+            steps = (alphas * a_p)[:, None]
+            merits = merits_at(z + steps * dz,
+                               torch.clamp(s + steps * ds, min=st.s_min),
+                               mu, nu)
+            merits = torch.where(torch.isfinite(merits), merits, torch.inf)
+            best = torch.argmin(merits)
+            merit_best = merits[best]
+            improved = merit_best < merit_now
+            alpha = torch.where(improved, alphas[best], 0.0)
 
-        steps = (alphas * a_p)[:, None]
-        merits = merits_at(z + steps * dz,
-                           torch.clamp(s + steps * ds, min=st.s_min), mu, nu)
-        merits = torch.where(torch.isfinite(merits), merits, torch.inf)
-        best = torch.argmin(merits)
-        merit_best = merits[best]
-        improved = merit_best < merit_now
-        alpha = torch.where(improved, alphas[best], 0.0)
+            step_z = alpha * a_p * dz
+            step_s = alpha * a_p * ds
+            step_lam = alpha * a_d * dlam
+            step_y = alpha * a_d * dy if m_e else dy
 
-        step_z = alpha * a_p * dz
-        step_s = alpha * a_p * ds
-        step_lam = alpha * a_d * dlam
-        step_y = alpha * a_d * dy if m_e else dy
+            if st.soc and m_e:
+                # second-order correction: the same factorization, the
+                # equality residual re-evaluated at the trial point
+                c_e_t, _ = c_fn(z + a_p * dz)
+                rhs_soc = torch.cat([rhs_z, -(a_p * c_e + c_e_t)])
+                sol2 = torch.linalg.lu_solve(LU, piv,
+                                             rhs_soc[:, None])[:, 0]
+                dz2, dy2 = sol2[:n], sol2[n:]
+                ds2 = -(c_i + s) - J_i @ dz2
+                dlam2 = (mu / torch.clamp(s, min=st.s_min) - lam) - D * ds2
+                ok2 = _all_finite(dz2, ds2, dlam2, dy2)
+                dz2 = torch.where(ok2, dz2, 0.0)
+                ds2 = torch.where(ok2, ds2, 0.0)
+                dlam2 = torch.where(ok2, dlam2, 0.0)
+                dy2 = torch.where(ok2, dy2, 0.0)
+                a_p2 = _step_limit(s, ds2, st.tau)
+                a_d2 = _step_limit(lam, dlam2, st.tau)
+                merit_soc = merit_at(
+                    z + a_p2 * dz2,
+                    torch.clamp(s + a_p2 * ds2, min=st.s_min), mu, nu)
+                merit_soc = torch.where(torch.isfinite(merit_soc) & ok2,
+                                        merit_soc, torch.inf)
+                use_soc = merit_soc < torch.minimum(merit_best, merit_now)
+                step_z = torch.where(use_soc, a_p2 * dz2, step_z)
+                step_s = torch.where(use_soc, a_p2 * ds2, step_s)
+                step_lam = torch.where(use_soc, a_d2 * dlam2, step_lam)
+                step_y = torch.where(use_soc, a_d2 * dy2, step_y)
+                improved = improved | use_soc
+                merit_best = torch.minimum(merit_best, merit_soc)
+                alpha = torch.where(use_soc, a_p2, alpha)
 
-        if st.soc and m_e:
-            # second-order correction: the same factorization, the equality
-            # residual re-evaluated at the trial point
-            c_e_t, _ = c_fn(z + a_p * dz)
-            rhs_soc = torch.cat([rhs_z, -(a_p * c_e + c_e_t)])
-            sol2 = torch.linalg.lu_solve(LU, piv, rhs_soc[:, None])[:, 0]
-            dz2, dy2 = sol2[:n], sol2[n:]
-            ds2 = -(c_i + s) - J_i @ dz2
-            dlam2 = (mu / torch.clamp(s, min=st.s_min) - lam) - D * ds2
-            ok2 = _all_finite(dz2, ds2, dlam2, dy2)
-            dz2 = torch.where(ok2, dz2, 0.0)
-            ds2 = torch.where(ok2, ds2, 0.0)
-            dlam2 = torch.where(ok2, dlam2, 0.0)
-            dy2 = torch.where(ok2, dy2, 0.0)
-            a_p2 = _step_limit(s, ds2, st.tau)
-            a_d2 = _step_limit(lam, dlam2, st.tau)
-            merit_soc = merit_at(z + a_p2 * dz2,
-                                 torch.clamp(s + a_p2 * ds2, min=st.s_min),
-                                 mu, nu)
-            merit_soc = torch.where(torch.isfinite(merit_soc) & ok2,
-                                    merit_soc, torch.inf)
-            use_soc = merit_soc < torch.minimum(merit_best, merit_now)
-            step_z = torch.where(use_soc, a_p2 * dz2, step_z)
-            step_s = torch.where(use_soc, a_p2 * ds2, step_s)
-            step_lam = torch.where(use_soc, a_d2 * dlam2, step_lam)
-            step_y = torch.where(use_soc, a_d2 * dy2, step_y)
-            improved = improved | use_soc
-            merit_best = torch.minimum(merit_best, merit_soc)
-            alpha = torch.where(use_soc, a_p2, alpha)
+            z_new = z + step_z
+            s_new = torch.clamp(s + step_s, min=st.s_min)
+            lam_new = torch.clamp(lam + step_lam, min=1e-12)
+            y_new = y + step_y if m_e else y
 
-        z_new = z + step_z
-        s_new = torch.clamp(s + step_s, min=st.s_min)
-        lam_new = torch.clamp(lam + step_lam, min=1e-12)
-        y_new = y + step_y if m_e else y
-
-        # LM damping adaptation (a non-finite step counts as a failure)
-        delta_new = torch.where(improved & step_ok,
-                                torch.clamp(delta / 3.0, min=st.delta_min),
-                                torch.clamp(delta * 10.0, max=st.delta_max))
-        new_state = IPMState(z_new, y_new, lam_new, s_new, delta_new,
-                             merit_best)
-        # the reference's trace row; the best-feasible tracker and the early
-        # exit read its f, eq and ineq, of the pre-step iterate
-        row = (f_val, merit_best, alpha, mu, delta, _amax0(torch.abs(c_e)),
-               _amax0(c_i), kkt_stat, kkt_comp)
-        return new_state, row
+            # LM damping adaptation (a non-finite step counts as a failure)
+            delta_new = torch.where(
+                improved & step_ok, torch.clamp(delta / 3.0, min=st.delta_min),
+                torch.clamp(delta * 10.0, max=st.delta_max))
+            new_state = IPMState(z_new, y_new, lam_new, s_new, delta_new,
+                                 merit_best)
+            # the reference's trace row; the best-feasible tracker and the
+            # early exit read its f, eq and ineq, of the pre-step iterate
+            row = (f_val, merit_best, alpha, mu, delta,
+                   _amax0(torch.abs(c_e)), _amax0(c_i), kkt_stat, kkt_comp)
+            return new_state, row
 
     init = IPMState(z0, y0, lam0, s0,
                     torch.tensor(st.delta_init, dtype=dtype, device=device),

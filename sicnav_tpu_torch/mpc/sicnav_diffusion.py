@@ -34,6 +34,7 @@ from sicnav_tpu_torch.env.types import EnvConfig, SimState
 from sicnav_tpu_torch.mpc import campc as C
 from sicnav_tpu_torch.mpc import ipm
 from sicnav_tpu_torch.mpc.ocp import MPCConfig, OCP
+from sicnav_tpu_torch.utils import tracing
 
 
 class SICNavDiffCarry(NamedTuple):
@@ -105,6 +106,14 @@ def act_on_forecasts(ocp: OCP, state: SimState, mpc_carry: C.CAMPCCarry,
                           aux=aux, h_intent=h_intent, debug=debug)
 
 
+def _count_solves(mpc_carry: C.CAMPCCarry):
+    """The tracer's ``solves`` and ``solves_accepted``: a solve is accepted
+    where the cascade did not fall back to its guess (the new carry's
+    ``prev_ok``), kept on the device until the tracer's snapshot."""
+    tracing.count("solves", mpc_carry.prev_ok.numel())
+    tracing.count("solves_accepted", mpc_carry.prev_ok)
+
+
 def sicnav_diffusion_action(ocp: OCP, model: JMIDModel, state: SimState,
                             carry: SICNavDiffCarry, env_cfg: EnvConfig,
                             fcfg: FC.ForecasterConfig,
@@ -113,11 +122,13 @@ def sicnav_diffusion_action(ocp: OCP, model: JMIDModel, state: SimState,
     """One SICNav-Diffusion control step. Returns (action (v, r), carry')
     (+ ``campc.CAMPCAux`` with ``aux=True``, else + the
     ``introspection.SolveDebug`` with ``debug=True``)."""
-    fstate = FC.update_state_hists(carry.forecaster, state, fcfg)
-    forecasts, log_w = FC.predict_ret_best(model, fstate, state, fcfg,
-                                           generator=carry.generator)
-    out = act_on_forecasts(ocp, state, carry.mpc, forecasts, log_w, env_cfg,
-                           settings, aux=aux, debug=debug)
+    with tracing.span("control"):
+        fstate = FC.update_state_hists(carry.forecaster, state, fcfg)
+        forecasts, log_w = FC.predict_ret_best(model, fstate, state, fcfg,
+                                               generator=carry.generator)
+        out = act_on_forecasts(ocp, state, carry.mpc, forecasts, log_w,
+                               env_cfg, settings, aux=aux, debug=debug)
+        _count_solves(out[1])
     new_carry = SICNavDiffCarry(mpc=out[1], forecaster=fstate,
                                 generator=carry.generator)
     return (out[0], new_carry) + tuple(out[2:])
@@ -153,11 +164,13 @@ def sicnav_diffusion_action_batch(ocp: OCP, model: JMIDModel,
     ``init_batch_carry``): the batched forecaster, then the vmapped MPC
     half. Returns (actions (B, 2), carry') (+ ``CAMPCAux`` of (B,)
     tensors with ``aux=True``)."""
-    fstate = FC.update_state_hists(carry.forecaster, states, fcfg)
-    forecasts, log_w = FC.predict_ret_best(model, fstate, states, fcfg,
-                                           generator=carry.generator)
-    out = act_on_forecasts_batch(ocp, states, carry.mpc, forecasts, log_w,
-                                 env_cfg, settings, aux=aux)
+    with tracing.span("control"):
+        fstate = FC.update_state_hists(carry.forecaster, states, fcfg)
+        forecasts, log_w = FC.predict_ret_best(model, fstate, states, fcfg,
+                                               generator=carry.generator)
+        out = act_on_forecasts_batch(ocp, states, carry.mpc, forecasts,
+                                     log_w, env_cfg, settings, aux=aux)
+        _count_solves(out[1])
     new_carry = SICNavDiffCarry(mpc=out[1], forecaster=fstate,
                                 generator=carry.generator)
     return (out[0], new_carry) + tuple(out[2:])

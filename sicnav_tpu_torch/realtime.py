@@ -29,6 +29,7 @@ from sicnav_tpu_torch.env.crowd_sim import tree_leaves, tree_unflatten
 from sicnav_tpu_torch.env.types import DoorParams, EnvConfig, SimState
 from sicnav_tpu_torch.mpc import ipm
 from sicnav_tpu_torch.mpc import sicnav_diffusion as SD
+from sicnav_tpu_torch.utils import tracing
 
 _TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.int32): torch.int32,
@@ -226,19 +227,26 @@ class StreamingController:
         return tree_unflatten((state, fstate), pieces)
 
     def select_action(self):
-        """One streaming control step. Returns (v, omega, diag)."""
-        t0 = time.perf_counter()
-        state_np, fstate_np = self._build_state()
-        state, fstate = self._to_device(state_np, fstate_np)
-        # the history comes from the resample, not the carry's ring
-        carry = self.carry._replace(forecaster=fstate)
-        action, self.carry = SD.sicnav_diffusion_action(
-            self.ocp, self.model, state, carry, self.env_cfg, self.fcfg,
-            self.settings)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        action = action.cpu().numpy()
-        latency = time.perf_counter() - t0
+        """One streaming control step. Returns (v, omega, diag); the
+        tracer's ``tick`` span takes the two clock readings of
+        ``latency_s``."""
+        t0 = time.perf_counter_ns()
+        with tracing.span("tick", t0) as tick:
+            with tracing.span("observe.resample"):
+                state_np, fstate_np = self._build_state()
+            with tracing.span("observe.copy"):
+                state, fstate = self._to_device(state_np, fstate_np)
+            # the history comes from the resample, not the carry's ring
+            carry = self.carry._replace(forecaster=fstate)
+            action, self.carry = SD.sicnav_diffusion_action(
+                self.ocp, self.model, state, carry, self.env_cfg, self.fcfg,
+                self.settings)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            action = action.cpu().numpy()
+            t1 = time.perf_counter_ns()
+            tick.end(t1)
+        latency = (t1 - t0) / 1e9
         self._prev_cmd = action
         self._have_prev = True
         self._step_idx += 1

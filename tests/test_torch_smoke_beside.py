@@ -101,3 +101,11 @@ def test_late_needs_a_card(tmp_path):
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert not out.exists()
+
+
+def test_busy_time_counts_overlapping_activities_once():
+    """The smoke's busy shares take the union of the device intervals."""
+    events = [("a", 0.0, 10.0), ("b", 5.0, 10.0), ("c", 30.0, 1.0),
+              ("d", 16.0, 2.0)]
+    assert chip_smoke.union_us(events) == pytest.approx(18.0)
+    assert chip_smoke.union_us([]) == 0.0
