@@ -279,7 +279,7 @@ def build_params(ocp: OCP, state: SimState, env_cfg: EnvConfig,
         walls=state.walls[:cfg.num_walls],
         wall_mask=state.wall_mask[:cfg.num_walls],
         x_ref=x_ref, mid_samples=mid_samples, mid_logw0=mid_logw0,
-        cost_w=(cfg.default_weights(dev) if cost_weights is None
+        cost_w=(ocp.default_weights if cost_weights is None
                 else cost_weights))
 
 
@@ -369,8 +369,7 @@ def _evasive_brake_action(ocp: OCP, params: MPCParams):
     v0 = ocp.rob_v_prev(params.x0_rob)
     ks = torch.arange(1, cfg.K + 1, dtype=torch.float32, device=v0.device)
     v = torch.clamp(v0 + cfg.max_l_dcc * cfg.dt * ks, min=0.0)
-    omegas = torch.tensor([0.0, 0.5, -0.5, 1.0, -1.0], dtype=torch.float32,
-                          device=v0.device) * cfg.max_rot
+    omegas = ocp.brake_omegas
     comb = params.hum_coll_radii + params.rob_radius
     margins = []
     for om in omegas:

@@ -43,7 +43,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import grad_and_value, jacrev, vmap
 
-from sicnav_tpu_torch.utils import tracing
+from sicnav_tpu_torch.utils import cuda_graph, tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +103,25 @@ def batched_lu_threads(device):
         torch.set_num_threads(n)
 
 
+@contextlib.contextmanager
+def cusolver_lu(device):
+    """On CUDA, torch.linalg's LU takes the route of its cuSOLVER backend
+    while the block runs: for the batched controller's ten 317 x 317 KKT
+    matrices that is cuBLAS's batched getrf and getrs, whose workspace
+    comes from torch's allocator. The default route there (MAGMA's batched
+    LU) allocates its own workspace with cudaMalloc and cudaFree at every
+    factorization, which a CUDA graph cannot hold. The CPU is untouched."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 class IPMState(NamedTuple):
     z: torch.Tensor
     y: torch.Tensor       # eq multipliers
@@ -141,6 +160,11 @@ def _step_limit(v, dv, tau):
     a = torch.amin(torch.where(neg, -tau * v / torch.where(neg, dv, -1.0),
                                1.0))
     return torch.clamp(a, 0.0, 1.0)
+
+
+def _full(value: float, dtype, device):
+    """A 0-d tensor of ``value``, filled on the device."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _all_finite(*xs):
@@ -234,7 +258,9 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
     # complementarity-consistent multiplier init: s_i * lam_i = mu_init
     lam0 = torch.clamp(st.mu_init / s0, 1e-6, 1e3)
     y0 = torch.zeros((m_e,), dtype=dtype, device=device)
-    alphas = torch.tensor(st.alphas, dtype=dtype, device=device)
+    # constants are filled on the device, never copied from the host: a
+    # copy waits for the device, and a CUDA graph cannot hold it
+    alphas = torch.stack([_full(a, dtype, device) for a in st.alphas])
     eye_n = torch.eye(n, dtype=dtype, device=device)
     reg_block = -st.reg_eq * torch.eye(m_e, dtype=dtype, device=device)
     if st.mu_schedule == "geometric":
@@ -256,9 +282,8 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
 
         with tracing.span("ipm.kkt"):
             if st.mu_schedule == "geometric":
-                mu = torch.clamp(st.mu_init * torch.tensor(
-                    mu_decay, dtype=dtype, device=device) ** it,
-                    min=st.mu_min)
+                mu = torch.clamp(st.mu_init * _full(
+                    mu_decay, dtype, device) ** it, min=st.mu_min)
             else:
                 mu = torch.clamp(st.sigma * torch.dot(s, lam) / m_i,
                                  min=st.mu_min)
@@ -366,11 +391,10 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
                    _amax0(torch.abs(c_e)), _amax0(c_i), kkt_stat, kkt_comp)
             return new_state, row
 
-    init = IPMState(z0, y0, lam0, s0,
-                    torch.tensor(st.delta_init, dtype=dtype, device=device),
-                    torch.tensor(torch.inf, dtype=dtype, device=device))
+    init = IPMState(z0, y0, lam0, s0, _full(st.delta_init, dtype, device),
+                    _full(torch.inf, dtype, device))
     false = torch.zeros((), dtype=torch.bool, device=device)
-    best = (z0, torch.tensor(torch.inf, dtype=dtype, device=device), false)
+    best = (z0, _full(torch.inf, dtype, device), false)
 
     def track_best(state, best, tr):
         # best-feasible-iterate tracker: the checks' f/eq/ineq belong to
@@ -390,7 +414,13 @@ def solve(f_fn: Callable, c_fn: Callable, z0: torch.Tensor,
     done = false
     n_used = torch.zeros((), dtype=torch.int32, device=device)
     rows = []
-    for it in range(limit):
+    # a plain fixed-trip loop launches the same kernels every iteration: a
+    # CUDA graph of the solve captures one iteration and replays it
+    plain = not (early or return_trace or st.keep_best_feasible or
+                 st.mu_schedule == "geometric")
+    if plain:
+        state = cuda_graph.repeat(lambda s: step(s, None)[0], state, limit)
+    for it in range(0 if plain else limit):
         new_state, tr = step(state, it)
         if return_trace:
             rows.append(tr)

@@ -32,6 +32,7 @@ import torch
 from sicnav_tpu_torch.device import resolve_device
 from sicnav_tpu_torch.mpc import orca_lines as OL
 from sicnav_tpu_torch.ops.geometry import dot2, jabs, jclip, jmax
+from sicnav_tpu_torch.utils.cuda_graph import GraphCache
 
 SLACK_SCALING = 1e-3
 SLACK_PENAL = 1e9
@@ -256,6 +257,24 @@ class OCP:
         self.jitter = _build_jitter(cfg, self.device)
         H = cfg.num_hums
         self._eye_h = torch.eye(H, dtype=torch.bool, device=self.device)
+        # the constants the residuals and the problem build take, built
+        # once here: a constant copied from the host inside an evaluation
+        # waits for the device, and a CUDA graph cannot hold the copy
+        self.default_weights = cfg.default_weights(self.device)
+        # the evasive brake's turn rates (campc._evasive_brake_action)
+        self.brake_omegas = torch.tensor(
+            [0.0, 0.5, -0.5, 1.0, -1.0], dtype=torch.float32,
+            device=self.device) * cfg.max_rot
+        # (lb, ub) (2,) of the robot's controls (v, om), by dtype
+        self.input_bounds = {
+            dt: (torch.tensor([-cfg.max_rev_speed, -cfg.max_rot + 0.001],
+                              dtype=dt, device=self.device),
+                 torch.tensor([cfg.max_speed, cfg.max_rot], dtype=dt,
+                              device=self.device))
+            for dt in (torch.float32, torch.float64)}
+        # the CUDA graphs of the batched controller on this OCP
+        # (sicnav_diffusion.act_on_forecasts_batch), one per input signature
+        self.graphs = GraphCache()
 
     # ------------------------------------------------------------------ z
     def unpack(self, z):
@@ -590,10 +609,7 @@ class OCP:
                                 torch.full_like(val, -1.0))   # (W, K+1)
 
         # robot input bounds
-        lb = torch.tensor([-cfg.max_rev_speed, -cfg.max_rot + 0.001],
-                          dtype=u_rob.dtype, device=u_rob.device)
-        ub = torch.tensor([cfg.max_speed, cfg.max_rot], dtype=u_rob.dtype,
-                          device=u_rob.device)
+        lb, ub = self.input_bounds[u_rob.dtype]
         g["bound"] = torch.cat([(u_rob - ub[None]).reshape(-1),
                                 (lb[None] - u_rob).reshape(-1)])
 

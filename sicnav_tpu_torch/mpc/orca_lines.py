@@ -133,9 +133,10 @@ def static_line(pos_a, vel_a, rad_a, wall, wall_valid,
     scalar = _checked_scalar(line_norm, line_dir, pt)
     dummy = dot2(line_norm, DUMMY_SCALE * line_norm)
     scalar = torch.where(valid & wall_valid, scalar, dummy)
-    # a sane norm even for invalid lines
-    up = torch.zeros_like(line_norm) + torch.tensor(
-        [0.0, 1.0], dtype=line_norm.dtype, device=line_norm.device)
+    # a sane norm even for invalid lines: (0, 1), made on the device (a
+    # constant copied from the host would wait for it at every evaluation)
+    up = torch.cat([torch.zeros_like(line_norm[..., :1]),
+                    torch.ones_like(line_norm[..., 1:])], dim=-1)
     line_norm = _where2(torch.isnan(line_norm).any(dim=-1), up, line_norm)
     return line_norm, scalar
 

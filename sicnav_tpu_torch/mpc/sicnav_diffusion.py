@@ -17,6 +17,8 @@ one control step: the forecaster takes the B scenes as one batch (each
 episode's noise from its own generator, its KDE ranking one kernel call of
 B x horizon groups), then ``torch.func.vmap`` maps the MPC half
 (``act_on_forecasts``) over the episodes, on an OCP built ``vmapped``.
+On a card that vmapped half is captured once as CUDA graphs and replayed
+at every later step (``act_on_forecasts_batch``).
 """
 
 from __future__ import annotations
@@ -134,6 +136,20 @@ def sicnav_diffusion_action(ocp: OCP, model: JMIDModel, state: SimState,
     return (out[0], new_carry) + tuple(out[2:])
 
 
+def controller_batch(ocp: OCP, env_cfg: EnvConfig,
+                     settings: ipm.IPMSettings = ipm.IPMSettings(),
+                     aux: bool = False):
+    """The function that ``act_on_forecasts_batch`` runs, eagerly or as a
+    CUDA graph: (states, mpc_carry, forecasts, log_w) -> its result,
+    ``act_on_forecasts`` ``torch.func.vmap``ped over the episodes. Call it
+    inside ``ipm.batched_lu_threads`` and ``ipm.cusolver_lu``, as
+    ``act_on_forecasts_batch`` does."""
+    def one(state, carry, fc, lw):
+        return act_on_forecasts(ocp, state, carry, fc, lw, env_cfg, settings,
+                                aux=aux)
+    return vmap(one)
+
+
 def act_on_forecasts_batch(ocp: OCP, states: SimState,
                            mpc_carry: C.CAMPCCarry, forecasts, log_w,
                            env_cfg: EnvConfig,
@@ -141,17 +157,26 @@ def act_on_forecasts_batch(ocp: OCP, states: SimState,
                            aux: bool = False):
     """``act_on_forecasts`` of B episodes, ``torch.func.vmap``ped over the
     leading episode axis of every argument: one solve of the B NLPs, each
-    launch carrying all of them. ``ocp`` must be built ``vmapped``."""
+    launch carrying all of them. ``ocp`` must be built ``vmapped``.
+
+    On a CUDA device the call is replayed from CUDA graphs, captured by
+    the first call of each signature (the inputs' shapes and dtypes,
+    ``env_cfg``, ``settings``, ``aux``) and kept in ``ocp.graphs`` (a
+    ``utils.cuda_graph.GraphCache``); the returned tensors are the
+    caller's own. The batched LU takes cuBLAS's route there
+    (``ipm.cusolver_lu``). On the CPU the call runs eagerly and counts
+    ``graph_eager``."""
     if not ocp.vmapped:
         raise ValueError("act_on_forecasts_batch needs an OCP built with "
                          "vmapped=True")
-
-    def one(state, carry, fc, lw):
-        return act_on_forecasts(ocp, state, carry, fc, lw, env_cfg, settings,
-                                aux=aux)
-
-    with ipm.batched_lu_threads(ocp.device):
-        return vmap(one)(states, mpc_carry, forecasts, log_w)
+    fn = controller_batch(ocp, env_cfg, settings, aux)
+    args = (states, mpc_carry, forecasts, log_w)
+    with ipm.batched_lu_threads(ocp.device), ipm.cusolver_lu(ocp.device):
+        if ocp.device.type != "cuda":
+            tracing.count("graph_eager")
+            return fn(*args)
+        return ocp.graphs(fn, args, key=(env_cfg, settings, aux),
+                          spans=("mpc", "mpc.graph"))
 
 
 def sicnav_diffusion_action_batch(ocp: OCP, model: JMIDModel,

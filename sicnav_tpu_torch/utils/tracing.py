@@ -13,6 +13,9 @@ per step:
 - ``count(name, value)`` from the program: ``solves`` and
   ``solves_accepted`` at the control entry points (the accepted share is
   a device tensor, kept as it is and read once, in ``snapshot()``);
+  ``graph_captures``, ``graph_replays`` (``utils.cuda_graph``) and
+  ``graph_eager`` (a batched controller call run eagerly, off a card) in
+  ``mpc/sicnav_diffusion.act_on_forecasts_batch``;
 - ``host_syncs``: while the tracer is on for a CUDA device, torch's sync
   debug mode is "warn" and each of its warnings counts one against the
   innermost open span, instead of being shown (``Snapshot.sync_sites``
