@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Write a trained JMID / iMID predictor in the PyTorch port's layout.
 
-    python scripts/convert_jmid_torch.py [--name jmid_hallway|imid_eth_proof]
+    python scripts/convert_jmid_torch.py
+        [--name jmid_hallway|imid_eth_proof|jmid_mc_man_nod]
         [--checkpoint checkpoints/<name>] [--out weights/<name>.npz]
 
 Reads the Orbax checkpoint with the JAX package's own reader
 (``sicnav_tpu.diffusion.mid.load_checkpoint``) at the checkpoint's widths
 (``MODELS``: the hallway JMID at ``ModelConfig(context_dim=128,
 tf_layer=2)``, the ETH iMID at ``context_dim=256, tf_layer=3``, its
-recipe's), maps the Flax tree through
+recipe's, and the sim JMID ``jmid_mc_man_nod`` at the published
+``ddim_jp_sim.yaml`` widths, ``context_dim=256, tf_layer=3``, one node
+type, trained on 5 ORCA humans crossing a circle), maps the Flax tree through
 ``sicnav_tpu_torch.convert.jmid_state_dict`` and saves the state_dict as one
 ``.npz`` of float32 arrays, keyed by parameter name. The port reads it with
 numpy alone (``convert.load_npz``), so a machine without JAX, Flax or
@@ -29,7 +32,9 @@ OUT = os.path.join(ROOT, "weights", "jmid_hallway.npz")
 WIDTHS = dict(context_dim=128, tf_layer=2)
 # shipped checkpoints the port serves: name -> (ModelConfig widths, joint)
 MODELS = {"jmid_hallway": (WIDTHS, True),
-          "imid_eth_proof": (dict(context_dim=256, tf_layer=3), False)}
+          "imid_eth_proof": (dict(context_dim=256, tf_layer=3), False),
+          "jmid_mc_man_nod": (dict(context_dim=256, tf_layer=3,
+                                   num_node_types=1), True)}
 
 
 def reference_params(checkpoint=CHECKPOINT, widths=WIDTHS, joint=True):

@@ -8,6 +8,7 @@ float32, as in the reference.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -148,8 +149,13 @@ def sample(net_apply: Callable, sched: VarianceSchedule, n_samples: int,
     sqrt_1mab = torch.sqrt(1 - sched.alpha_bars)
     sigmas = (sched.sigmas_flex * flexibility +
               sched.sigmas_inflex * (1 - flexibility))
+    steps = range(sched.num_steps, 0, -stride)
     with tracing.span("forecast.denoise"):
-        for i, t in enumerate(range(sched.num_steps, 0, -stride)):
+        # the denoiser's work, from host shapes: its passes, and the token
+        # rows (episodes x samples x agents x horizon) of each pass
+        tracing.count("denoise_passes", len(steps))
+        tracing.count("denoise_rows", math.prod(x_t.shape[:-1]))
+        for i, t in enumerate(steps):
             t_next = max(t - stride, 0)
             beta = sched.betas[t].expand(*lead, bs)
             e_theta = net_apply(x_t, beta, ctx)

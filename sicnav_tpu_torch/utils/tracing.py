@@ -15,7 +15,10 @@ per step:
   a device tensor, kept as it is and read once, in ``snapshot()``);
   ``graph_captures``, ``graph_replays`` (``utils.cuda_graph``) and
   ``graph_eager`` (a batched controller call run eagerly, off a card) in
-  ``mpc/sicnav_diffusion.act_on_forecasts_batch``;
+  ``mpc/sicnav_diffusion.act_on_forecasts_batch``; ``denoise_passes``
+  and ``denoise_rows`` (a sampling call's DDIM passes, and the token rows
+  of the denoiser's matrix products in each: episodes x samples x agents
+  x horizon, from shapes on the host) in ``forecast.denoise``;
 - ``host_syncs``: while the tracer is on for a CUDA device, torch's sync
   debug mode is "warn" and each of its warnings counts one against the
   innermost open span, instead of being shown (``Snapshot.sync_sites``
